@@ -1,0 +1,182 @@
+"""Port vs JAX: the flood (K1), connected components (K3), root-rank relabel
+(K4), the gaussian and the 'flood' watershed on the same numpy inputs.
+
+The port's wrappers run their plain PyTorch versions on CPU tensors; the
+JAX side runs its CPU path, with the Pallas flood in interpret mode.  K1, K3
+and K4 must agree bit for bit.  The CUDA kernels are held against the plain
+versions on the card by ``chip_smoke.py`` and by
+``tests/test_torch_kernels_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+from scipy import ndimage
+
+import jax.numpy as jnp
+
+from microbeseg_torch.ops import cc as tcc
+from microbeseg_torch.ops.filters import gaussian_filter
+from microbeseg_torch.ops.kernels.flood import flood_packed, flood_or_fallback
+from microbeseg_torch.ops.watershed import watershed
+
+
+def _blob_field(rng, H, W, n_blobs):
+    yy, xx = np.mgrid[0:H, 0:W]
+    cell = np.zeros((H, W), np.float32)
+    for _ in range(n_blobs):
+        cy, cx = rng.integers(3, H - 3), rng.integers(3, W - 3)
+        r = float(rng.uniform(3, 8))
+        cell = np.maximum(cell, np.clip(
+            1 - np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2) / r, 0, 1))
+    cell = (cell + rng.normal(0, 0.02, (H, W))).astype(np.float32)
+    seeds, _ = ndimage.label(cell > 0.6, structure=np.ones((3, 3)))
+    return cell, seeds.astype(np.int32), cell > 0.1
+
+
+def _batch_fields(seed, B, H, W, n_blobs=6):
+    rng = np.random.default_rng(seed)
+    fields = [_blob_field(rng, H, W, n_blobs) for _ in range(B)]
+    return tuple(np.stack(f) for f in zip(*fields))
+
+
+class TestFloodK1:
+    @pytest.mark.parametrize("label_bits", [12, 24])
+    def test_plain_matches_pallas_interpret(self, label_bits):
+        """Odd 30x46 frames, a batch of 3 with their own quantisation."""
+        from microbeseg_tpu.ops.pallas.flood import flood_pallas
+
+        cell, seeds, mask = _batch_fields(5, 3, 30, 46)
+        cell[1] *= 3.0          # per-image ranges differ
+        cell[2] -= 0.5
+        if label_bits == 24:    # ids above 12 bits must survive
+            seeds = np.where(seeds > 0, seeds + 5000, 0).astype(np.int32)
+        ref = np.asarray(flood_pallas(jnp.asarray(-cell), jnp.asarray(seeds),
+                                      jnp.asarray(mask), n_levels=128,
+                                      label_bits=label_bits, interpret=True))
+        ours = flood_packed(torch.from_numpy(-cell), torch.from_numpy(seeds),
+                            torch.from_numpy(mask), n_levels=128,
+                            label_bits=label_bits).numpy()
+        assert ours.shape == (3, 30, 46)
+        np.testing.assert_array_equal(ours, ref)
+        assert len(np.unique(ours)) > 3
+
+    def test_routing_and_limits(self):
+        cell, seeds, mask = _batch_fields(6, 1, 32, 32)
+        args = (torch.from_numpy(-cell), torch.from_numpy(seeds),
+                torch.from_numpy(mask))
+        small = flood_or_fallback(*args, max_label=255)
+        wide = flood_or_fallback(*args, max_label=70000)   # 24-bit keys
+        np.testing.assert_array_equal(small.numpy(), wide.numpy())
+        with pytest.raises(ValueError, match="packed key overflow"):
+            flood_packed(*args, n_levels=1 << 20, label_bits=12)
+        big = torch.zeros((1, 8, 800))
+        with pytest.raises(NotImplementedError, match="K2"):
+            flood_or_fallback(big, big.int(), big > 0)
+
+    def test_unpackable_labels_take_watershed_on_cpu_only(self):
+        """Labels the packed key cannot carry take the 'flood' watershed on
+        the CPU; on any other device they raise (no kernel there yet)."""
+        cell, seeds, mask = _batch_fields(6, 1, 32, 32)
+        args = [torch.from_numpy(a) for a in (-cell, seeds, mask)]
+        got = flood_or_fallback(*args, max_label=1 << 24)
+        np.testing.assert_array_equal(got.numpy(), watershed(*args).numpy())
+        meta = [a.to("meta") for a in args]
+        with pytest.raises(NotImplementedError, match="item 13"):
+            flood_or_fallback(*meta, max_label=1 << 24)
+
+
+class TestWatershed:
+    def test_plain_flood_matches_jax(self):
+        from microbeseg_tpu.ops.watershed import watershed as jws
+
+        cell, seeds, mask = _batch_fields(7, 2, 40, 36)
+        ours = watershed(torch.from_numpy(-cell), torch.from_numpy(seeds),
+                         torch.from_numpy(mask)).numpy()
+        for i in range(2):
+            ref = np.asarray(jws(jnp.asarray(-cell[i]),
+                                 jnp.asarray(seeds[i]), jnp.asarray(mask[i])))
+            np.testing.assert_array_equal(ours[i], ref)
+
+
+def _seed_masks(rng, H=48, W=64):
+    """Blobs, 1-px speckle, diagonal-only contacts and one snaking
+    component that crosses the frame several times."""
+    m = rng.random((H, W)) < 0.08
+    for _ in range(6):
+        cy, cx = rng.integers(3, H - 3), rng.integers(3, W - 3)
+        r = int(rng.integers(1, 4))
+        m[cy - r:cy + r + 1, cx - r:cx + r + 1] = True
+    snake = np.zeros((H, W), bool)
+    for k, y in enumerate(range(2, H - 2, 4)):
+        snake[y, 2:W - 2] = True
+        x = W - 3 if k % 2 == 0 else 2
+        snake[y:y + 4, x] = True
+    return m | snake
+
+
+class TestConnectedComponentsK3K4:
+    @pytest.mark.parametrize("connectivity", [1, 2])
+    def test_cc_matches_jax(self, connectivity):
+        from microbeseg_tpu.ops.cc import connected_components as jcc
+
+        rng = np.random.default_rng(11 + connectivity)
+        masks = np.stack([_seed_masks(rng) for _ in range(3)])
+        ours = tcc.connected_components(torch.from_numpy(masks),
+                                        connectivity=connectivity).numpy()
+        for i in range(3):
+            ref = np.asarray(jcc(jnp.asarray(masks[i]),
+                                 connectivity=connectivity))
+            np.testing.assert_array_equal(ours[i], ref)
+
+    @pytest.mark.parametrize("connectivity", [1, 2])
+    def test_sequentialize_matches_jax(self, connectivity):
+        """connectivity 1 ids touch diagonally: the JAX call then needs
+        isolated_components=False, and the port must agree with it."""
+        from microbeseg_tpu.ops.cc import (
+            connected_components as jcc, sequentialize_components as jseq)
+
+        rng = np.random.default_rng(21 + connectivity)
+        masks = np.stack([_seed_masks(rng) for _ in range(2)])
+        labels = np.stack([np.asarray(jcc(jnp.asarray(m),
+                                          connectivity=connectivity))
+                           for m in masks])
+        ours = tcc.sequentialize_components(torch.from_numpy(labels)).numpy()
+        for i in range(2):
+            ref = np.asarray(jseq(jnp.asarray(labels[i]),
+                                  isolated_components=connectivity == 2))
+            np.testing.assert_array_equal(ours[i], ref)
+            assert ours[i].max() == len(np.unique(ours[i])) - 1
+
+    def test_sequentialize_arbitrary_ids(self):
+        """Ids that are not CC output: split regions, missing roots."""
+        from microbeseg_tpu.ops.cc import sequentialize_components as jseq
+
+        rng = np.random.default_rng(3)
+        labels = rng.integers(0, 5, (24, 24)).astype(np.int32)
+        labels[5, 5] = 5 * 24 + 5 + 1   # a root
+        labels[5, 6] = labels[5, 5]
+        labels[20, 20] = labels[5, 5]   # same id, not connected to it
+        ref = np.asarray(jseq(jnp.asarray(labels),
+                              isolated_components=False))
+        ours = tcc.sequentialize_components(torch.from_numpy(labels)).numpy()
+        np.testing.assert_array_equal(ours, ref)
+
+
+class TestGaussian:
+    def test_matches_jax(self):
+        """The port sums the taps in the JAX order with the FMAs XLA's CPU
+        backend forms; XLA recomputes some fused intermediates in another
+        order, so a few pixels differ by one ulp (ROADMAP Queue 3)."""
+        from microbeseg_tpu.ops.filters import gaussian_filter as jg
+
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((3, 30, 46)).astype(np.float32)
+        ref = np.asarray(jg(jnp.asarray(x), 0.5))
+        ours = gaussian_filter(torch.from_numpy(x), 0.5).numpy()
+        ulps = np.abs(ours.view(np.int32).astype(np.int64)
+                      - ref.view(np.int32).astype(np.int64))
+        assert ulps.max() <= 1
+        assert (ulps == 0).mean() >= 0.995
+        np.testing.assert_array_equal(
+            gaussian_filter(torch.from_numpy(x), 0.0).numpy(), x)
