@@ -6,21 +6,37 @@
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from ``microbeseg_torch/csrc`` (one nvcc per
    source, in parallel).
-3. Holds each kernel (K1 flood, K3 connected components, K4 rank relabel)
-   exactly against its plain PyTorch version on the card, at the main
-   path's shapes (16 x 256^2) on seeded blob fields and a speckle field,
-   and times kernel, plain version and, for K4, the one-call PyTorch gather
-   that computes the same function, with CUDA events.
-4. Builds the full-width distance DUNet (filters 64 -> 1024, bn, relu, conv
-   pooling) with numpy-seeded weights and runs ``InferenceEngine.segment``
-   on 48 uint16 frames of 256^2 (3 batches of 16), with every launch
-   counter set to 0 just before and read just after.  Checks that each
-   kernel launched, that no out-of-memory fallback was taken, that the
-   masks hold instances, that the plain post-processing on the card gives
-   the same masks from the same predictions, and that the bf16 forward on
-   the card agrees with a float32 CPU forward of the same weights on a
-   small input.
-5. Times ``segment`` (crops/s) and its forward and post-processing parts.
+3. Holds each kernel exactly against its plain PyTorch version on the card,
+   at the shapes the main paths give it, and times kernel, plain version
+   and, for K4, the one-call PyTorch gather that computes the same function,
+   with CUDA events: K1 flood, K3 connected components and K4 rank relabel
+   at 16 x 256^2 on seeded blob fields and a speckle field; K2, the frame
+   flood, with markers above 4095 on 2 x 1024^2, 1000 x 1400 and one 2048^2
+   field; K3 and K4 again on one 2048^2 field.
+4. Crop path: builds the full-width distance DUNet (filters 64 -> 1024, bn,
+   relu, conv pooling) with numpy-seeded weights and runs
+   ``InferenceEngine.segment`` on 48 uint16 frames of 256^2 (3 batches of
+   16), with every launch counter set to 0 just before and read just after.
+   Checks that K1, K3 and K4 launched, that no out-of-memory fallback was
+   taken, that the masks hold instances, that the plain post-processing on
+   the card gives the same masks from the same predictions, and that the
+   bf16 forward on the card agrees with a float32 CPU forward of the same
+   weights on a small input.  Times ``segment`` (crops/s) and its forward
+   and post-processing parts.
+5. Large-frame path: the same model through ``segment`` with
+   ``InferConfig(use_tiling=True)`` (tile 512, overlap 64: 25 tiles a
+   frame, 8 a forward call) on 3 uint16 frames of 2048^2 with ~900 blobs
+   each, counters set to 0 before and read after.  Checks that K2, K3 and
+   K4 launched, no out-of-memory fallback, instances and ids above 255,
+   and that kernel post-processing equals plain post-processing on one
+   whole stitched 2048^2 frame.  Times ``segment`` (frames/s, Mpx/s) and its
+   forward, stitching and post-processing parts.
+6. Smaller checks: ``segment_grid`` with 8 threshold pairs equals 8
+   ``segment`` calls; a 3-class boundary U-Net (seeded weights, output head
+   calibrated on held-out frames) gives masks with instances and its kernel
+   post-processing equals the plain one; ``scale_factor=0.5`` and
+   ``apply_clahe=True`` give finite predictions that agree with the same
+   engine on the CPU at the bf16 tolerance.
 
 The next-to-last line of stdout is a JSON object with one entry per kernel,
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -41,6 +57,7 @@ import numpy as np
 import torch
 
 B, SIDE, N_FRAMES = 16, 256, 48
+BIG, N_BIG, BIG_BLOBS = 2048, 3, 900
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 # H100 SXM int32 rate: 132 SMs x 64 results per clock for 32-bit integer
 # add, compare, min and max (CUDA C++ Programming Guide, arithmetic
@@ -99,16 +116,52 @@ def blob_frames(rng, n, size, n_blobs=14):
     return frames
 
 
-def seeded_model(seed: int):
-    """Full-width distance DUNet with numpy-drawn weights.  Conv kernels are
-    non-negative and sum to 1 per output channel (weighted averages), so the
-    fields follow the frames' blobs instead of turning into speckle; norm
-    affines and running statistics are drawn around 1 and 0."""
+def big_blob_fields(rng, n, shape, n_blobs):
+    """``blob_fields`` for large frames: each cone is drawn in its own small
+    window, so the cost does not grow with the frame."""
+    H, W = shape
+    out = np.zeros((n, H, W), np.float32)
+    for i in range(n):
+        for _ in range(n_blobs):
+            cy, cx = rng.integers(16, H - 16), rng.integers(16, W - 16)
+            r = rng.uniform(5, 14)
+            yy, xx = np.mgrid[cy - 15:cy + 16, cx - 15:cx + 16].astype(
+                np.float32)
+            d = np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2) / r
+            win = out[i, cy - 15:cy + 16, cx - 15:cx + 16]
+            np.maximum(win, np.clip(1 - d, 0, 1), out=win)
+    out += rng.normal(0, 0.02, out.shape).astype(np.float32)
+    return out
+
+
+def big_blob_frames(rng, n, size, n_blobs):
+    """``blob_frames`` for large frames, each ellipse drawn in its own
+    window."""
+    frames = np.empty((n, size, size), np.uint16)
+    for i in range(n):
+        fg = np.zeros((size, size), bool)
+        for _ in range(n_blobs):
+            cy, cx = rng.integers(10, size - 10, 2)
+            ry, rx = rng.integers(4, 9, 2)
+            yy, xx = np.mgrid[cy - 9:cy + 10, cx - 9:cx + 10]
+            fg[cy - 9:cy + 10, cx - 9:cx + 10] |= (
+                ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0)
+        img = fg * 28000.0 + rng.normal(0, 900, (size, size)) + 2500.0
+        frames[i] = np.clip(img, 0, 65535).astype(np.uint16)
+    return frames
+
+
+def seeded_model(seed: int, cfg=None):
+    """Full-width model (the distance DUNet unless ``cfg`` says otherwise)
+    with numpy-drawn weights.  Conv kernels are non-negative and sum to 1
+    per output channel (weighted averages), so the fields follow the
+    frames' blobs instead of turning into speckle; norm affines and running
+    statistics are drawn around 1 and 0."""
     from microbeseg_torch.config import ModelConfig
     from microbeseg_torch.models.unet import build_unet
 
     rng = np.random.default_rng(seed)
-    model = build_unet(ModelConfig())
+    model = build_unet(cfg or ModelConfig())
     state = {}
     for name, t in model.state_dict().items():
         shape = tuple(t.shape)
@@ -219,48 +272,131 @@ def check_kernels(dev, report):
         bytes=px * (4 + 4 + 1 + 4), ops=n_work * 6,
         steps_per_image=n_steps / B, candidates_per_image=n_work / B,
         in_mask_share=float(in_mask.sum()) / px)
+    check_big_kernels(dev, rng, results, exact)
     for r in results.values():
-        t_bytes = r.pop("bytes") / HBM_BYTES_PER_S * 1e3
-        t_ops = r.pop("ops") / INT_OPS_PER_S * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        for suffix in ("", "_2048"):
+            if "bytes" + suffix not in r:
+                continue
+            t_bytes = r.pop("bytes" + suffix) / HBM_BYTES_PER_S * 1e3
+            t_ops = r.pop("ops" + suffix) / INT_OPS_PER_S * 1e3
+            r["bound_ms" + suffix] = max(t_bytes, t_ops)
+            r["bound_by" + suffix] = ("bytes" if t_bytes >= t_ops
+                                      else "operations")
     report["kernels"] = results
-    print(f"kernels exact vs plain at {B}x{SIDE}^2; flood ran "
-          f"{n_steps / B:.1f} steps and examined {n_work / B:.1f} candidate "
-          f"pixels per image", flush=True)
+    print(f"kernels exact vs plain at {B}x{SIDE}^2 and on large frames; K1 "
+          f"ran {n_steps / B:.1f} steps and examined {n_work / B:.1f} "
+          f"candidate pixels per image", flush=True)
     for name, r in results.items():
         print(f"{name}: {r['ms']:.5f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
+        if "ms_2048" in r:
+            print(f"{name} at {BIG}^2: {r['ms_2048']:.5f} ms, plain "
+                  f"{r['plain_ms_2048']:.4f} ms, bound "
+                  f"{r['bound_ms_2048']:.6f} ms", flush=True)
 
 
-def main_path(dev, report):
-    """Phase 4 and 5: the full-width engine through segment."""
-    from microbeseg_torch.config import InferConfig
-    from microbeseg_torch.inference.engine import InferenceEngine
-    from microbeseg_torch.kernels import _build
+def check_big_kernels(dev, rng, results, exact):
+    """K2 against its plain version, and K3 and K4 on one 2048^2 frame."""
     from microbeseg_torch.ops import cc
+    from microbeseg_torch.ops.filters import gaussian_filter
     from microbeseg_torch.ops.kernels import flood
-    from microbeseg_torch.ops.postprocessing import (
-        _distance_postprocessing, distance_postprocessing)
 
-    def plain_flood(value, markers, mask, n_levels, max_label):
-        bits = flood.packed_label_bits(max(value.shape[-2:]), n_levels,
-                                       max_label)
-        return flood.flood_packed_plain(value, markers, mask,
-                                        n_levels=n_levels, label_bits=bits)
+    def fields(n, shape, n_blobs):
+        cell = torch.from_numpy(big_blob_fields(rng, n, shape, n_blobs))
+        cell = gaussian_filter(cell.to(dev), 0.5)
+        ranks = cc.sequentialize_components(
+            cc.connected_components(cell > 0.6))
+        # ids above 4095, so the 24-bit label field is exercised
+        return cell, torch.where(ranks > 0, ranks + 5000, 0), cell > 0.1
 
-    model, n_params = seeded_model(0)
-    cpu_model = seeded_model(0)[0]
-    engine = InferenceEngine(model, "distance", cfg=InferConfig(),
-                             device=dev)
-    rng = np.random.default_rng(2)
-    frames = blob_frames(rng, N_FRAMES, SIDE)
-    warm = blob_frames(rng, B, SIDE)
+    # K2 exact: two frames per call, a non-multiple size, and 2 levels (the
+    # boundary method's flood)
+    for n, shape, n_blobs in ((2, (1024, 1024), 230), (1, (1000, 1400), 300)):
+        cell, markers, mask = fields(n, shape, n_blobs)
+        for n_levels in (128, 2):
+            exact("K2", flood.flood_tiled(-cell, markers, mask, n_levels),
+                  flood.flood_tiled_plain(-cell, markers, mask, n_levels))
 
-    # thresholds from the fields of held-out frames: random weights have no
-    # trained scale.  The background is one flat level (the median) and
-    # the blobs rise above it; the mask takes the top 80% of that rise,
-    # the seeds the top 50% of the seed field's rise.
+    # one 2048^2 frame: K2, K3 and K4 exact and timed
+    cell, markers, mask = fields(1, (BIG, BIG), BIG_BLOBS)
+    got = flood.flood_tiled(-cell, markers, mask)
+    exact("K2", got, flood.flood_tiled_plain(-cell, markers, mask))
+    if int(got.max()) <= 5000:
+        raise AssertionError("K2: no label above 12 bits came through")
+    steps = torch.empty((1,), dtype=torch.int32, device=dev)
+    work = torch.zeros((1,), dtype=torch.int64, device=dev)
+    flood.flood_tiled(-cell, markers, mask, steps_out=steps, work_out=work)
+    n_steps, n_work = int(steps.item()), int(work.item())
+    in_mask = int(mask.sum().item())
+    if not 0 < n_work <= n_steps * in_mask:
+        raise AssertionError(f"K2 work count {n_work} out of range")
+    k2_ms = cuda_ms(lambda: flood.flood_tiled(-cell, markers, mask), 10)
+    k2_plain = cuda_ms(lambda: flood.flood_tiled_plain(-cell, markers, mask),
+                       1, warmup=1)
+    px = BIG * BIG
+    # the function reads value, markers and mask and writes labels: 13 B a
+    # pixel; operations as for K1, 6 per candidate pixel and step
+    results["flood_tiled"] = dict(
+        source="microbeseg_torch/csrc/flood_frame.cu",
+        replaces="microbeseg_tpu/ops/pallas/flood.py:264",
+        max_abs_err=0, ms=k2_ms, plain_ms=k2_plain, library_ms=None,
+        bytes=px * (4 + 4 + 1 + 4), ops=n_work * 6, shape=[1, BIG, BIG],
+        steps=n_steps, candidates=n_work, in_mask_share=in_mask / px)
+
+    seeds_bin = cell > 0.6
+    speckle = torch.from_numpy(rng.random((1, BIG, BIG)) < 0.35).to(dev)
+    for field in (seeds_bin, speckle & mask):
+        exact("K3 2048", cc.connected_components(field),
+              cc.connected_components_plain(field))
+    labels = cc.connected_components(seeds_bin)
+    for lab in (labels, cc.connected_components(speckle & mask, 1)):
+        exact("K4 2048", cc.sequentialize_components(lab),
+              cc.sequentialize_components_plain(lab))
+    table = torch.cat([torch.zeros((1, 1), dtype=torch.int32, device=dev),
+                       cc._root_ranks(labels).view(1, -1)], dim=1)
+    idx = labels.view(1, -1).to(torch.int64)
+    exact("K4 gather 2048", torch.gather(table, 1, idx).view(1, BIG, BIG),
+          cc.sequentialize_components(labels))
+    results["connected_components"].update(
+        ms_2048=cuda_ms(lambda: cc.connected_components(seeds_bin), 20),
+        plain_ms_2048=cuda_ms(
+            lambda: cc.connected_components_plain(seeds_bin), 1, warmup=1),
+        bytes_2048=px * (1 + 4), ops_2048=px * 8)
+    results["sequentialize_components"].update(
+        ms_2048=cuda_ms(lambda: cc.sequentialize_components(labels), 20),
+        plain_ms_2048=cuda_ms(
+            lambda: cc.sequentialize_components_plain(labels), 1, warmup=1),
+        library_ms_2048=cuda_ms(lambda: torch.gather(table, 1, idx), 20),
+        bytes_2048=px * (4 + 4), ops_2048=px * 8)
+
+
+def plain_flood(value, markers, mask, n_levels, max_label):
+    """``flood_or_fallback``'s routing onto the plain versions."""
+    from microbeseg_torch.ops.kernels import flood
+
+    side = max(value.shape[-2:])
+    if side > flood.MAX_SIDE:
+        return flood.flood_tiled_plain(value, markers, mask,
+                                       n_levels=n_levels)
+    bits = flood.packed_label_bits(side, n_levels, max_label)
+    return flood.flood_packed_plain(value, markers, mask, n_levels=n_levels,
+                                    label_bits=bits)
+
+
+def plain_kernels():
+    """The plain versions, as arguments of the post-processing functions."""
+    from microbeseg_torch.ops import cc
+
+    return dict(cc_fn=cc.connected_components_plain,
+                rank_fn=cc.sequentialize_components_plain,
+                flood_fn=plain_flood)
+
+
+def field_thresholds(engine, warm):
+    """(th_cell, th_seed) from the fields of held-out frames: random weights
+    have no trained scale.  The background is one flat level (the median)
+    and the blobs rise above it; the mask takes the top 80% of that rise,
+    the seeds the top 50% of the seed field's rise."""
     border_w, cell_w = engine.predict_raw(warm)
     if not (np.isfinite(border_w).all() and np.isfinite(cell_w).all()):
         raise AssertionError("non-finite predictions")
@@ -271,20 +407,27 @@ def main_path(dev, report):
         bg, top = np.median(field), np.quantile(field, 0.995)
         return float(bg + frac * (top - bg))
 
-    th_cell = level(cell_w, 0.2)
-    th_seed = level(cell_w - borders, 0.5)
-    engine.segment(warm, th_cell, th_seed)   # warm-up (cuDNN, kernels)
-    torch.cuda.synchronize()
+    return level(cell_w, 0.2), level(cell_w - borders, 0.5)
 
+
+def driven_segment(engine, frames, th_cell, th_seed, must_launch):
+    """One ``segment`` call with the launch counters set to 0 just before
+    and read just after -> (masks, seconds, launches, instances per
+    frame).  Raises if a kernel
+    of ``must_launch`` did not launch, on an out-of-memory fallback, or on
+    masks of the wrong shape or without instances."""
+    from microbeseg_torch.kernels import _build
+
+    torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.perf_counter()
     masks = engine.segment(frames, th_cell, th_seed)
-    first_s = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    for name, n in launches.items():
-        if n == 0:
+    for name in must_launch:
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
+                                 f"{frames.shape[1]}^2 path")
     if engine.oom_count:
         raise AssertionError(f"{engine.oom_count} out-of-memory fallbacks")
     if masks.shape != frames.shape or masks.dtype != np.uint16:
@@ -292,18 +435,45 @@ def main_path(dev, report):
     n_inst = [len(np.unique(m)) - 1 for m in masks]
     if min(n_inst) < 1:
         raise AssertionError(f"frames without instances: {n_inst}")
+    return masks, seconds, launches, n_inst
+
+
+def timed_segment(engine, frames, th_cell, th_seed, reps=3):
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        engine.segment(frames, th_cell, th_seed)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def main_path(dev, report, model, cpu_model, n_params):
+    """Phase 4: the full-width engine through segment on 256^2 crops."""
+    from microbeseg_torch.config import InferConfig
+    from microbeseg_torch.inference.engine import InferenceEngine
+    from microbeseg_torch.ops.postprocessing import (
+        _distance_postprocessing, distance_postprocessing)
+
+    engine = InferenceEngine(model, "distance", cfg=InferConfig(),
+                             device=dev)
+    rng = np.random.default_rng(2)
+    frames = blob_frames(rng, N_FRAMES, SIDE)
+    warm = blob_frames(rng, B, SIDE)
+    th_cell, th_seed = field_thresholds(engine, warm)
+    engine.segment(warm, th_cell, th_seed)   # warm-up (cuDNN, kernels)
+    masks, first_s, launches, n_inst = driven_segment(
+        engine, frames, th_cell, th_seed,
+        ("flood_packed", "connected_components", "sequentialize_components"))
 
     # same predictions -> kernel post-processing == plain post-processing
-    border, cell = engine._predict_bucket(frames)
+    border, cell = engine._predict_raw_dev(frames)
     if not (torch.isfinite(border).all() and torch.isfinite(cell).all()):
         raise AssertionError("non-finite predictions")
-    kern = engine.postprocess(border, cell, th_cell, th_seed)
+    kern = engine.postprocess((border, cell), th_cell, th_seed)
     plain = np.concatenate([
         _distance_postprocessing(
             border[s:s + B], cell[s:s + B], th_seed, th_cell, max_seeds=256,
-            cc_fn=cc.connected_components_plain,
-            rank_fn=cc.sequentialize_components_plain,
-            flood_fn=plain_flood).cpu().numpy()
+            **plain_kernels()).cpu().numpy()
         for s in range(0, N_FRAMES, B)])
     if not np.array_equal(kern, plain):
         raise AssertionError("post-processing: kernels differ from plain "
@@ -312,23 +482,14 @@ def main_path(dev, report):
 
     # bf16 forward on the card vs float32 forward on the CPU, small input
     small = blob_frames(rng, 2, 64)
-    ref_eng = InferenceEngine(cpu_model, "distance", device="cpu")
-    ref = ref_eng.predict_raw(small)
-    got = engine.predict_raw(small)
-    rel = max(float(np.abs(g - r).max() / np.abs(r).max())
-              for g, r in zip(got, ref))
-    if not rel < 0.05:
-        raise AssertionError(f"bf16 card forward vs f32 CPU: rel err {rel}")
+    rel = card_vs_cpu(engine, InferenceEngine(cpu_model, "distance",
+                                              device="cpu"), small)
 
     # timing: segment end to end, and its two device stages per batch
-    seg_s = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        engine.segment(frames, th_cell, th_seed)
-        seg_s.append(time.perf_counter() - t0)
+    seg_s = timed_segment(engine, frames, th_cell, th_seed)
     chunk = frames[:B]
-    fwd_ms = cuda_ms(lambda: engine._predict_bucket(chunk), 10)
-    b16, c16 = engine._predict_bucket(chunk)
+    fwd_ms = cuda_ms(lambda: engine._predict_raw_dev(chunk), 10)
+    b16, c16 = engine._predict_raw_dev(chunk)
     post_ms = cuda_ms(lambda: distance_postprocessing(
         b16, c16, th_seed, th_cell, max_seeds=256), 10)
     seg_med = statistics.median(seg_s)
@@ -347,7 +508,191 @@ def main_path(dev, report):
           f"post-processing {post_ms:.3f} ms per batch of {B}; "
           f"launches {launches}; instances/frame {min(n_inst)}-"
           f"{max(n_inst)}", flush=True)
+    return launches, (th_cell, th_seed)
+
+
+def card_vs_cpu(engine, ref_engine, frames, tol=0.05):
+    """Largest difference between the card's bf16 predictions and the CPU's
+    float32 ones, relative to the field's largest magnitude; raises above
+    ``tol`` or on non-finite values."""
+    got = engine.predict_raw(frames)
+    ref = ref_engine.predict_raw(frames)
+    if not all(np.isfinite(g).all() for g in got):
+        raise AssertionError("non-finite predictions")
+    rel = max(float(np.abs(g - r).max() / np.abs(r).max())
+              for g, r in zip(got, ref))
+    if not rel < tol:
+        raise AssertionError(f"bf16 card forward vs f32 CPU: rel err {rel}")
+    return rel
+
+
+def big_path(dev, report, model):
+    """Phase 5: 2048^2 frames through the tiled path of segment."""
+    from microbeseg_torch.config import InferConfig
+    from microbeseg_torch.inference.engine import InferenceEngine
+    from microbeseg_torch.inference.tiling import (
+        extract_tiles_device, stitch_tiles_device, tile_positions)
+    from microbeseg_torch.ops.postprocessing import (
+        _distance_postprocessing, distance_postprocessing)
+
+    cfg = InferConfig(use_tiling=True)
+    engine = InferenceEngine(model, "distance", cfg=cfg, device=dev)
+    rng = np.random.default_rng(3)
+    frames = big_blob_frames(rng, N_BIG, BIG, BIG_BLOBS)
+    warm = big_blob_frames(rng, 1, BIG, BIG_BLOBS)
+    th_cell, th_seed = field_thresholds(engine, warm)
+    engine.segment(warm, th_cell, th_seed)   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    masks, first_s, launches, n_inst = driven_segment(
+        engine, frames, th_cell, th_seed,
+        ("flood_tiled", "connected_components", "sequentialize_components"))
+    if launches["flood_packed"]:
+        raise AssertionError("the crop flood ran on 2048^2 frames")
+    if int(masks.max()) <= 255:
+        raise AssertionError(f"no instance id above 255: max {masks.max()}")
+
+    # one whole stitched 2048^2 frame: kernel == plain post-processing
+    border, cell = engine._predict_raw_dev(frames[:1])
+    if not (torch.isfinite(border).all() and torch.isfinite(cell).all()):
+        raise AssertionError("non-finite predictions")
+    cap = engine._seeds_cap(BIG, BIG)
+    kern = engine.postprocess((border, cell), th_cell, th_seed)
+    plain = _distance_postprocessing(border, cell, th_seed, th_cell,
+                                     max_seeds=cap,
+                                     **plain_kernels()).cpu().numpy()
+    if not np.array_equal(kern, plain):
+        raise AssertionError("2048^2 post-processing: kernels differ from "
+                             f"plain on {(kern != plain).sum()} px")
+    same_as_segment = float((kern[0] == masks[0]).mean())
+
+    # timing: segment end to end, and its device stages for one frame
+    seg_s = timed_segment(engine, frames, th_cell, th_seed)
+    tile, overlap = cfg.tile_size, cfg.tile_overlap
+    pos = [(y, x) for y in tile_positions(BIG, tile, overlap)
+           for x in tile_positions(BIG, tile, overlap)]
+    bs_tile = engine._device_batch(tile, tile)
+    raw = engine._upload(frames[:1])
+
+    def forward():
+        flat = extract_tiles_device(engine._prep(raw, BIG, BIG), tile,
+                                    pos)[0]
+        return [engine._forward(flat[s:s + bs_tile])
+                for s in range(0, len(pos), bs_tile)]
+
+    fwd_ms = cuda_ms(forward, 5)
+    heads = [torch.cat([p[i] for p in forward()])[None] for i in range(2)]
+    stitch_ms = cuda_ms(lambda: [stitch_tiles_device(h, pos, (BIG, BIG))
+                                 for h in heads], 10)
+    post_ms = cuda_ms(lambda: distance_postprocessing(
+        border, cell, th_seed, th_cell, max_seeds=cap), 10)
+    seg_med = statistics.median(seg_s)
+    report["big_path"] = dict(
+        model="DUNet filters (64, 1024) bn relu conv, bf16 autocast",
+        frames=[N_BIG, BIG, BIG], tile=tile, overlap=overlap,
+        tiles_per_frame=len(pos), tiles_per_forward=bs_tile, max_seeds=cap,
+        launches=launches, instances_per_frame=n_inst,
+        max_id=int(masks.max()), segment_first_s=first_s, segment_s=seg_s,
+        frames_per_s=N_BIG / seg_med,
+        mpx_per_s=N_BIG * BIG * BIG / seg_med / 1e6,
+        forward_ms_per_frame=fwd_ms, stitch_ms_per_frame=stitch_ms,
+        postprocess_ms_per_frame=post_ms,
+        kernel_masks_equal_segment_masks=same_as_segment,
+        th_cell=th_cell, th_seed=th_seed,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"segment: {N_BIG} frames of {BIG}^2 (tile {tile}, {len(pos)} "
+          f"tiles) in {seg_med:.4f} s = {N_BIG / seg_med:.2f} frames/s, "
+          f"{N_BIG * BIG * BIG / seg_med / 1e6:.1f} Mpx/s; per frame: "
+          f"forward {fwd_ms:.2f} ms, stitching {stitch_ms:.3f} ms, "
+          f"post-processing {post_ms:.3f} ms; launches {launches}; "
+          f"instances/frame {min(n_inst)}-{max(n_inst)}", flush=True)
     return launches
+
+
+def boundary_model(seed, dev, frames):
+    """Full-width 3-class U-Net with seeded weights.  Its output head is set
+    from the last feature map on held-out frames: random weights put no
+    class above another, so cell and background logits are +-k (s - m) of
+    one seeded mix s of the features, with m halfway up the blobs' rise and
+    k scaling that rise to 8, and the boundary logit is a constant -2."""
+    from microbeseg_torch.config import ModelConfig
+
+    model, _ = seeded_model(seed, ModelConfig(unet_type="U", ch_out=3))
+    model = model.to(dev).to(memory_format=torch.channels_last)
+    head = model.decoderConv[-1]
+    x = torch.from_numpy(frames.astype(np.float32)).to(dev)
+    mn, mx = x.amin((1, 2), keepdim=True), x.amax((1, 2), keepdim=True)
+    x = (2 * (x - mn) / (mx - mn) - 1)[..., None]
+    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+        s = model(x)[..., 1].float()
+    bg, top = s.median().item(), s.quantile(0.995).item()
+    k, m = 8.0 / (top - bg), (bg + top) / 2
+    with torch.no_grad():
+        w, b = head.weight[1].clone(), head.bias[1].clone()
+        head.weight[1], head.bias[1] = k * w, k * (b - m)
+        head.weight[0], head.bias[0] = -k * w, -k * (b - m)
+        head.weight[2], head.bias[2] = 0.0, -2.0
+    return model
+
+
+def small_checks(dev, report, model, cpu_model, thresholds):
+    """Phase 6: the threshold grid, a boundary model, scaling and CLAHE."""
+    from microbeseg_torch.config import InferConfig
+    from microbeseg_torch.inference.engine import InferenceEngine
+    from microbeseg_torch.ops.postprocessing import _boundary_postprocessing
+
+    rng = np.random.default_rng(4)
+    th_cell, th_seed = thresholds
+    out = {}
+
+    # segment_grid with 8 pairs == 8 segment calls
+    engine = InferenceEngine(model, "distance", device=dev)
+    frame = blob_frames(rng, 1, SIDE)[0]
+    gap = th_seed - th_cell
+    pairs = [(th_cell + c * gap, th_seed + s * gap)
+             for c in (0.0, 0.1, 0.2, 0.3) for s in (-0.1, 0.1)]
+    grid = engine.segment_grid(frame, pairs)
+    if grid.shape != (8, SIDE, SIDE) or grid.dtype != np.uint16:
+        raise AssertionError(f"grid masks {grid.shape} {grid.dtype}")
+    for (tc, ts), m in zip(pairs, grid):
+        if not np.array_equal(m, engine.segment(frame, tc, ts)):
+            raise AssertionError(f"segment_grid differs from segment at "
+                                 f"thresholds {(tc, ts)}")
+    if len({int((m > 0).sum()) for m in grid}) < 2 or grid.max() < 1:
+        raise AssertionError("the threshold grid gave one mask 8 times")
+    out["grid_instances"] = [len(np.unique(m)) - 1 for m in grid]
+
+    # boundary model: instances, and kernel == plain post-processing
+    frames = blob_frames(rng, B, SIDE)
+    bengine = InferenceEngine(
+        boundary_model(5, dev, blob_frames(rng, 4, SIDE)), "boundary",
+        device=dev)
+    masks = bengine.segment(frames)
+    n_inst = [len(np.unique(m)) - 1 for m in masks]
+    if masks.dtype != np.uint16 or min(n_inst) < 1:
+        raise AssertionError(f"boundary masks: instances {n_inst}")
+    (probs,) = bengine._predict_raw_dev(frames)
+    kern = bengine.postprocess((probs,), 0.0, 0.0)
+    plain = _boundary_postprocessing(probs, max_seeds=256,
+                                     **plain_kernels()).cpu().numpy()
+    if not np.array_equal(kern, plain):
+        raise AssertionError("boundary post-processing: kernels differ from "
+                             f"plain on {(kern != plain).sum()} px")
+    out["boundary_instances"] = n_inst
+
+    # scaling and CLAHE on the bucket path vs the same engine on the CPU
+    small = blob_frames(rng, 2, 64)
+    for name, cfg in (("scale_factor_0.5", InferConfig(scale_factor=0.5)),
+                      ("apply_clahe", InferConfig(apply_clahe=True))):
+        out[name + "_rel_err"] = card_vs_cpu(
+            InferenceEngine(model, "distance", cfg=cfg, device=dev),
+            InferenceEngine(cpu_model, "distance", cfg=cfg, device="cpu"),
+            small)
+    for eng in (engine, bengine):
+        if eng.oom_count:
+            raise AssertionError(f"{eng.oom_count} out-of-memory fallbacks")
+    report["small_checks"] = out
+    print(f"grid, boundary, scaling and CLAHE checks passed: {out}",
+          flush=True)
 
 
 def main() -> int:
@@ -372,12 +717,21 @@ def main() -> int:
     print(f"built {sorted(logs)} in {report['build_s']:.1f} s", flush=True)
 
     check_kernels(dev, report)
-    launches = main_path(dev, report)
+    model, n_params = seeded_model(0)
+    cpu_model = seeded_model(0)[0]
+    crop_launches, thresholds = main_path(dev, report, model, cpu_model,
+                                          n_params)
+    big_launches = big_path(dev, report, model)
+    small_checks(dev, report, model, cpu_model, thresholds)
+    report["total_s"] = time.perf_counter() - t0
+    # launches: those of the two driven segment calls together
+    launches = {k: crop_launches[k] + big_launches[k] for k in crop_launches}
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    **{k: v for k, v in r.items() if k.endswith("_2048")})
                for name, r in report["kernels"].items()]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

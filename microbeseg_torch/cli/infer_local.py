@@ -2,8 +2,9 @@
 
 Same argument contract and shape dispatch as
 ``microbeseg_tpu/cli/infer_local.py``.  Runs on the CUDA card; ``--device
-cpu`` runs on the CPU.  Options whose paths are not ported yet
-(``--sliding_window``, ``--quantize``) raise ``NotImplementedError``.
+cpu`` runs on the CPU.  ``--sliding_window`` forces tiled inference with
+``--tile_size`` and ``--tile_overlap``; ``--quantize`` is not ported yet and
+raises ``NotImplementedError``.
 
     python -m microbeseg_torch.cli.infer_local -i <tif dir> -m <model stem>
 """

@@ -1,19 +1,27 @@
 """Inference engine: batched forward + post-processing on the card.
 
-Port of the bucket path of ``microbeseg_tpu/inference/engine.py``: raw frames
-upload once at their native dtype, are normalised per frame to [-1, 1],
-padded up-left with -1 to the pad bucket, run through the (D)U-Net in
-batches (bf16 autocast on CUDA), cropped back, and post-processed on the
-device; only uint16 masks come back.
+Port of ``microbeseg_tpu/inference/engine.py``: raw frames upload once at
+their native dtype, are normalised per frame to [-1, 1] (after CLAHE when
+``apply_clahe``), scaled down when ``scale_factor < 1``, and run through
+the (D)U-Net in batches (bf16 autocast on CUDA) on one of two paths:
 
-Not ported yet (they raise ``NotImplementedError``): ``scale_factor < 1``,
-``apply_clahe``, ``quantize``, ``use_tiling`` and frames beyond the bucket
-table (ROADMAP Queue 1 items 3, 5, 12 and 6), and boundary-method
-post-processing.
+- the bucket path pads each frame up-left with -1 to its pad bucket and
+  crops the predictions back;
+- the tiled path, for frames beyond the bucket table or with
+  ``use_tiling`` for frames larger than a tile, cuts overlapping tiles on
+  the device, runs them in batches and stitches the predictions with
+  feathered weights.
+
+Predictions scale back up to the frame, are post-processed on the device
+(distance or boundary method), and only uint16 masks come back.
+
+Not ported yet: ``quantize`` raises ``NotImplementedError`` (ROADMAP Queue 1
+item 12).
 """
 
 from __future__ import annotations
 
+import math
 from pathlib import Path
 from typing import Optional, Sequence, Tuple, Union
 
@@ -21,8 +29,19 @@ import numpy as np
 import torch
 
 from microbeseg_torch.config import InferConfig
+from microbeseg_torch.inference.tiling import (
+    extract_tiles_device,
+    stitch_tiles_device,
+    tile_positions,
+)
 from microbeseg_torch.models.io import load_model
-from microbeseg_torch.ops.postprocessing import distance_postprocessing
+from microbeseg_torch.ops.augment import clahe
+from microbeseg_torch.ops.postprocessing import (
+    boundary_postprocessing,
+    distance_postprocessing,
+    distance_postprocessing_grid,
+)
+from microbeseg_torch.ops.resize import resize
 from microbeseg_torch.utils.device import resolve_device
 from microbeseg_torch.utils.image import pad_bucket_shape
 
@@ -55,17 +74,10 @@ class InferenceEngine:
         self.oom_count = 0
 
     def _check_supported(self) -> None:
-        unported = {
-            "scale_factor < 1": (self.cfg.scale_factor < 1,
-                                 "ROADMAP Queue 1 item 3"),
-            "apply_clahe": (self.cfg.apply_clahe, "ROADMAP Queue 1 item 5"),
-            "quantize": (self.cfg.quantize, "ROADMAP Queue 1 item 12"),
-            "use_tiling": (self.cfg.use_tiling, "ROADMAP Queue 1 item 6"),
-        }
-        for name, (on, item) in unported.items():
-            if on:
-                raise NotImplementedError(
-                    f"InferConfig {name} is not ported yet ({item})")
+        if self.cfg.quantize:
+            raise NotImplementedError(
+                "InferConfig quantize is not ported yet (ROADMAP Queue 1 "
+                "item 12)")
 
     @classmethod
     def from_checkpoint(cls, model_path: Union[str, Path],
@@ -112,16 +124,44 @@ class InferenceEngine:
         per_frame = h * w * (np.dtype(dtype).itemsize + pred_bytes)
         return max(1, (6 << 30) // max(per_frame, 1))
 
+    def _prep_chunk_cap(self, h: int, w: int) -> int:
+        """Frames per device call that pre-processing can afford.  CLAHE
+        holds a few index and lookup planes per frame at the unscaled size
+        (an int64 bin plane, an int64 gather index and four float32
+        lookups, about 64 bytes a pixel), which ``_device_batch`` knows
+        nothing about; the cap keeps them under 2 GiB per chunk."""
+        if not self.cfg.apply_clahe:
+            return 1 << 30
+        return max(1, (2 << 30) // (h * w * 64))
+
+    def _scaled_hw(self, h: int, w: int) -> Tuple[int, int]:
+        """The size the network sees for an (h, w) frame."""
+        scale = self.cfg.scale_factor
+        if scale >= 1:
+            return h, w
+        return max(int(round(h * scale)), 1), max(int(round(w * scale)), 1)
+
     def _prep_ops(self, x: torch.Tensor) -> torch.Tensor:
-        """Raw (B, H, W) frames -> float32 normalised to [-1, 1] per frame;
-        a constant frame maps to all-zero."""
+        """Raw (B, H, W) frames -> float32 normalised to [-1, 1] per frame,
+        after CLAHE on the [0, 1]-rescaled frame when ``apply_clahe``; a
+        constant frame maps to all-zero."""
         x = x.to(torch.float32)
+        if self.cfg.apply_clahe:
+            mn = x.amin(dim=(1, 2), keepdim=True)
+            mx = x.amax(dim=(1, 2), keepdim=True)
+            x = clahe((x - mn) / torch.clamp(mx - mn, min=1e-7)) * 65535.0
         mn = x.amin(dim=(1, 2), keepdim=True)
         mx = x.amax(dim=(1, 2), keepdim=True)
         denom = mx - mn
         safe = torch.where(denom > 0, denom, torch.ones_like(denom))
         return torch.where(denom > 0, 2.0 * (x - mn) / safe - 1.0,
                            torch.zeros_like(x))
+
+    def _prep(self, raw: torch.Tensor, sh: int, sw: int) -> torch.Tensor:
+        """Raw frames -> normalised frames at the network's size (sh, sw):
+        "cubic" down when ``scale_factor < 1``.  The frame's own min and
+        max are taken before any tile is cut."""
+        return resize(self._prep_ops(raw), (sh, sw), "cubic")
 
     def _net_apply(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """Model application on normalised, padded (B, H, W, 1) input:
@@ -161,17 +201,24 @@ class InferenceEngine:
             acc = inv if acc is None else [a + b for a, b in zip(acc, inv)]
         return tuple(a / len(variants) for a in acc)
 
-    def _forward_chunk(self, raw: torch.Tensor, pad_y: int,
-                       pad_x: int) -> Tuple[torch.Tensor, ...]:
-        """Raw (b, h, w) frames -> de-padded float32 predictions."""
-        x = self._prep_ops(raw)
-        x = torch.nn.functional.pad(x, (pad_x, 0, pad_y, 0), value=-1.0)
-        x = x[..., None]
+    def _forward(self, x: torch.Tensor, pad_y: int = 0,
+                 pad_x: int = 0) -> Tuple[torch.Tensor, ...]:
+        """Normalised (b, h, w) frames or tiles, already padded up-left by
+        (pad_y, pad_x) -> float32 predictions with the pad cropped off."""
         with torch.inference_mode(), torch.autocast(
                 "cuda", dtype=torch.bfloat16,
                 enabled=self.device.type == "cuda"):
-            preds = self._net_apply(x)
+            preds = self._net_apply(x[..., None])
         return tuple(p[:, pad_y:, pad_x:].float() for p in preds)
+
+    def _forward_chunk(self, raw: torch.Tensor, sh: int, sw: int, pad_y: int,
+                       pad_x: int) -> Tuple[torch.Tensor, ...]:
+        """Bucket path for raw (b, h, w) frames: prep, scale down, pad,
+        forward, crop, scale back up -> float32 predictions at (h, w)."""
+        x = self._prep(raw, sh, sw)
+        x = torch.nn.functional.pad(x, (pad_x, 0, pad_y, 0), value=-1.0)
+        preds = self._forward(x, pad_y, pad_x)
+        return tuple(resize(p, raw.shape[1:], "linear") for p in preds)
 
     def _zero_preds(self, b: int, h: int, w: int) -> Tuple[torch.Tensor, ...]:
         z = torch.zeros((b, h, w), dtype=torch.float32, device=self.device)
@@ -191,19 +238,30 @@ class InferenceEngine:
             frames = frames.astype(np.float32)
         return torch.tensor(frames, device=self.device)
 
-    def _predict_bucket(self, frames: np.ndarray) -> Tuple[torch.Tensor, ...]:
+    def _predict_raw_dev(self, frames: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        """``predict_raw`` with the predictions left on the device, where
+        ``segment`` post-processes them.  The tiled path takes frames whose
+        scaled size is beyond the bucket table, and with ``use_tiling``
+        those with a side above the tile size."""
+        frames = np.asarray(frames)
+        if frames.ndim == 2:
+            frames = frames[None]
+        sh, sw = self._scaled_hw(*frames.shape[1:])
+        try:
+            th, tw = pad_bucket_shape(sh, sw)
+        except ValueError:
+            return self._predict_tiled(frames)
+        if self.cfg.use_tiling and max(sh, sw) > self.cfg.tile_size:
+            return self._predict_tiled(frames)
+        return self._predict_bucket(frames, sh, sw, th, tw)
+
+    def _predict_bucket(self, frames: np.ndarray, sh: int, sw: int, th: int,
+                        tw: int) -> Tuple[torch.Tensor, ...]:
         """Bucket-pad path: one raw upload, then prep+forward chunks of the
         device batch.  Out-of-memory gives zero predictions for the chunk
         (the reference's all-zero fallback) and is counted."""
         T, H, W = frames.shape
-        try:
-            th, tw = pad_bucket_shape(H, W)
-        except ValueError:
-            raise NotImplementedError(
-                f"{H}x{W} frames exceed the pad-bucket table; tiled "
-                "inference is not ported yet (ROADMAP Queue 1 item 6)"
-            ) from None
-        bs = self._device_batch(th, tw)
+        bs = min(self._device_batch(th, tw), self._prep_chunk_cap(H, W))
         raw = self._upload(frames)
         outs = []
         for s in range(0, T, bs):
@@ -213,13 +271,75 @@ class InferenceEngine:
                 chunk = torch.cat([chunk, torch.zeros(
                     (bs - n, H, W), dtype=chunk.dtype, device=self.device)])
             try:
-                out = self._forward_chunk(chunk, th - H, tw - W)
+                out = self._forward_chunk(chunk, sh, sw, th - sh, tw - sw)
             except torch.cuda.OutOfMemoryError:
                 self.oom_count += 1
                 out = self._zero_preds(bs, H, W)
             outs.append(tuple(o[:n] for o in out))
         return tuple(torch.cat([o[i] for o in outs])
                      for i in range(len(outs[0])))
+
+    def _predict_tiled(self, frames: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        """Sliding-window path: one raw upload; per chunk of frames, prep
+        with the frame's own min and max, tiles cut on the device, forward
+        in device batches of tiles, feathered stitching on the device.  A
+        frame with a side below the tile is tiled over its extent padded
+        with -1 (the normalised minimum) and the stitched maps are cropped
+        back.  Memory stays bounded because frame chunks are processed end
+        to end and not every tile is held.  Out-of-memory gives zero
+        predictions for the chunk, counted."""
+        tile, overlap = self.cfg.tile_size, self.cfg.tile_overlap
+        T, H, W = frames.shape
+        sh, sw = self._scaled_hw(H, W)
+        ph, pw = max(tile - sh, 0), max(tile - sw, 0)
+        pos = [(y, x) for y in tile_positions(sh + ph, tile, overlap)
+               for x in tile_positions(sw + pw, tile, overlap)]
+        n = len(pos)
+        bs_tile = self._device_batch(tile, tile)
+        # frames per chunk: a whole number of tile batches where possible,
+        # capped by a tile-memory budget and the stack length
+        ideal = bs_tile // math.gcd(n, bs_tile)
+        budget = max(bs_tile, (256 << 20) // (tile * tile * 4))
+        bs0 = max(1, min(ideal, max(1, budget // n),
+                         self._prep_chunk_cap(H, W), T))
+        raw = self._upload(frames)
+        stitched = []
+        for s in range(0, T, bs0):
+            chunk = raw[s:s + bs0]
+            try:
+                stitched.append(self._tiled_chunk(chunk, sh, sw, ph, pw,
+                                                  tile, pos, bs_tile))
+            except torch.cuda.OutOfMemoryError:
+                self.oom_count += 1
+                stitched.append(self._zero_preds(chunk.shape[0], sh, sw))
+        return tuple(
+            resize(torch.cat([c[i] for c in stitched]), (H, W), "linear")
+            for i in range(len(stitched[0])))
+
+    def _tiled_chunk(self, chunk: torch.Tensor, sh: int, sw: int, ph: int,
+                     pw: int, tile: int, pos, bs_tile: int
+                     ) -> Tuple[torch.Tensor, ...]:
+        """Raw (b, H, W) frames -> stitched predictions at (b, sh, sw)."""
+        b, n = chunk.shape[0], len(pos)
+        norm = self._prep(chunk, sh, sw)
+        if ph or pw:
+            norm = torch.nn.functional.pad(norm, (0, pw, 0, ph), value=-1.0)
+        flat = extract_tiles_device(norm, tile, pos).reshape(b * n, tile,
+                                                             tile)
+        preds = [self._forward(flat[ts:ts + bs_tile])
+                 for ts in range(0, b * n, bs_tile)]
+        full = (sh + ph, sw + pw)
+        if self.label_type == "distance":
+            return tuple(
+                stitch_tiles_device(
+                    torch.cat([p[i] for p in preds]).view(b, n, tile, tile),
+                    pos, full)[:, :sh, :sw]
+                for i in range(2))
+        probs = torch.cat([p[0] for p in preds]).view(b, n, tile, tile, 3)
+        # channels ride the stitch batch axis: (b * 3, n, tile, tile)
+        chan = probs.movedim(-1, 1).reshape(b * 3, n, tile, tile)
+        sp = stitch_tiles_device(chan, pos, full).view(b, 3, *full)
+        return (sp[:, :, :sh, :sw].movedim(1, -1),)
 
     def predict_raw(self, frames: np.ndarray) -> Tuple[np.ndarray, ...]:
         """CNN predictions for a (T, H, W) stack (or one (H, W) frame) at
@@ -231,23 +351,30 @@ class InferenceEngine:
         T, H, W = frames.shape
         cap = self._resident_frames_cap(H, W, frames.dtype)
         outs = [tuple(p.cpu().numpy() for p in
-                      self._predict_bucket(frames[s:s + cap]))
+                      self._predict_raw_dev(frames[s:s + cap]))
                 for s in range(0, T, cap)]
         return tuple(np.concatenate([o[i] for o in outs])
                      for i in range(len(outs[0])))
 
-    def postprocess(self, border: torch.Tensor, cell: torch.Tensor,
-                    th_cell: float, th_seed: float) -> np.ndarray:
-        """Device predictions (T, H, W) -> uint16 masks, in device batches.
-        Out-of-memory gives zero masks for the batch, counted."""
-        T, H, W = cell.shape
+    def postprocess(self, preds: Tuple[torch.Tensor, ...], th_cell: float,
+                    th_seed: float) -> np.ndarray:
+        """Device predictions of T frames (distance: (border, cell);
+        boundary: (probs,)) -> (T, H, W) uint16 masks, in device batches
+        (one frame at a time at 2048^2).  Out-of-memory gives zero masks
+        for the batch, counted."""
+        T, H, W = preds[0].shape[:3]
         bs = self._device_batch(H, W)
+        cap = self._seeds_cap(H, W)
         masks = np.empty((T, H, W), np.uint16)
         for s in range(0, T, bs):
             try:
-                m = distance_postprocessing(
-                    border[s:s + bs], cell[s:s + bs], th_seed, th_cell,
-                    max_seeds=self._seeds_cap(H, W))
+                if self.label_type == "distance":
+                    m = distance_postprocessing(
+                        preds[0][s:s + bs], preds[1][s:s + bs], th_seed,
+                        th_cell, max_seeds=cap)
+                else:
+                    m = boundary_postprocessing(preds[0][s:s + bs],
+                                                max_seeds=cap)
                 masks[s:s + bs] = m.cpu().numpy()
             except torch.cuda.OutOfMemoryError:
                 self.oom_count += 1
@@ -258,10 +385,6 @@ class InferenceEngine:
                 th_cell: Optional[float] = None,
                 th_seed: Optional[float] = None) -> np.ndarray:
         """Full pipeline: (T, H, W) raw frames -> (T, H, W) uint16 instances."""
-        if self.label_type != "distance":
-            raise NotImplementedError(
-                "boundary-method post-processing is not ported yet "
-                "(ROADMAP Queue 1 item 2b)")
         frames = np.asarray(frames)
         squeeze = frames.ndim == 2
         if squeeze:
@@ -272,7 +395,25 @@ class InferenceEngine:
         cap = self._resident_frames_cap(H, W, frames.dtype)
         masks = np.empty(frames.shape, np.uint16)
         for s in range(0, T, cap):
-            border, cell = self._predict_bucket(frames[s:s + cap])
-            masks[s:s + cap] = self.postprocess(border, cell, th_cell,
-                                                th_seed)
+            preds = self._predict_raw_dev(frames[s:s + cap])
+            masks[s:s + cap] = self.postprocess(preds, th_cell, th_seed)
         return masks[0] if squeeze else masks
+
+    def segment_grid(self, frame: np.ndarray, th_pairs) -> np.ndarray:
+        """Threshold-grid segmentation of one (H, W) frame: th_pairs (n, 2)
+        of (th_cell, th_seed) -> (n, H, W) uint16, the grid post-processed
+        as one batch on the device.  Distance models only: the boundary
+        method has no thresholds to grid over."""
+        if self.label_type != "distance":
+            raise ValueError(
+                "segment_grid applies only to distance models; use "
+                "segment() for the boundary method (no threshold grid)")
+        frame = np.asarray(frame)
+        border, cell = self._predict_raw_dev(frame[None])
+        try:
+            return distance_postprocessing_grid(
+                border[0], cell[0], th_pairs,
+                max_seeds=self._seeds_cap(*frame.shape[-2:])).cpu().numpy()
+        except torch.cuda.OutOfMemoryError:
+            self.oom_count += 1
+            return np.zeros((len(th_pairs),) + frame.shape[-2:], np.uint16)

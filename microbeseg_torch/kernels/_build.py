@@ -28,10 +28,11 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flood", "cc")
+SOURCES = ("flood", "flood_frame", "cc")
 
 # launches per kernel wrapper (plain integers; reset with reset_launches)
-LAUNCHES: Dict[str, int] = {"flood_packed": 0, "connected_components": 0,
+LAUNCHES: Dict[str, int] = {"flood_packed": 0, "flood_tiled": 0,
+                            "connected_components": 0,
                             "sequentialize_components": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,4 +1,4 @@
-"""Kernel K1: the packed-key marker flood, CUDA kernel and plain version.
+"""Kernels K1 and K2: the packed-key marker floods and their plain versions.
 
 ``flood_packed`` is the port of ``microbeseg_tpu/ops/pallas/flood.py::
 flood_pallas``: per image, the in-mask value is quantised into ``n_levels``
@@ -9,8 +9,16 @@ pixel re-keys at its own level), and full-mask steps then run to a fixed
 point.  Within a level the packed order prefers the lower label id, where
 the ``watershed`` flood prefers the lower value.
 
-On a CUDA tensor the wrapper launches ``csrc/flood.cu`` (or raises); on a CPU
-tensor it runs ``flood_packed_plain``, the same steps in PyTorch.
+``flood_tiled`` is the port of ``flood_tiled`` / ``_flood_packed`` there, the
+flood for frames with a side above 768: the same steps with 24 label bits on
+two pre-built int32 planes (level and mask in one, seeded keys in the
+other).  The JAX package floods (512 + 2 * 64)^2 windows and sweeps up what
+crosses a halo; the port floods the whole frame as one window, which ends
+at the fixed point over the whole mask and leaves nothing to sweep up.
+
+On a CUDA tensor each wrapper launches its kernel (``csrc/flood.cu``,
+``csrc/flood_frame.cu``) or raises; on a CPU tensor it runs the plain
+version beside it, the same steps in PyTorch.
 """
 
 from __future__ import annotations
@@ -24,13 +32,24 @@ from microbeseg_torch.kernels import _build
 BIG_KEY = 0x7FFFFFFF
 _BIG = 3.0e38
 
-MAX_SIDE = 768  # largest side the whole-frame flood takes (K2 beyond)
+MAX_SIDE = 768  # largest side flood_packed takes (flood_tiled beyond)
+TILED_LABEL_BITS = 24
+_INNER_STEPS = 2  # key-min steps per level of the frame flood, as in JAX
+_MAX_PIXELS = 1 << 30  # the frame kernel indexes pixels with int32
 
 
 def _check_packing(n_levels: int, label_bits: int) -> None:
     if label_bits + max(1, (n_levels - 1).bit_length()) > 31:
         raise ValueError(
             f"packed key overflow: {label_bits} label bits x {n_levels} levels")
+
+
+def _check_work_out(work_out, B: int, dev) -> None:
+    if work_out is not None and (work_out.dtype != torch.int64
+                                 or work_out.shape != (B,)
+                                 or work_out.device != dev):
+        raise ValueError("work_out must be a (B,) int64 tensor on the "
+                         "value's device")
 
 
 def _as_batch(value, markers, mask):
@@ -132,11 +151,7 @@ def flood_packed(value: torch.Tensor, markers: torch.Tensor,
     scratch = torch.empty((3, B, H, W), dtype=torch.int32, device=dev)
     if steps_out is None:
         steps_out = torch.empty((B,), dtype=torch.int32, device=dev)
-    if work_out is not None and (work_out.dtype != torch.int64
-                                 or work_out.shape != (B,)
-                                 or work_out.device != dev):
-        raise ValueError("work_out must be a (B,) int64 tensor on the "
-                         "value's device")
+    _check_work_out(work_out, B, dev)
     lib = _build.load("flood")
     fn = lib.flood_packed_launch
     fn.restype = ctypes.c_int
@@ -153,16 +168,116 @@ def flood_packed(value: torch.Tensor, markers: torch.Tensor,
     return out[0] if squeeze else out
 
 
+def packed_planes(value: torch.Tensor, markers: torch.Tensor,
+                  mask: torch.Tensor, n_levels: int):
+    """The two planes the frame flood works on, each (B, H, W) int32, built
+    as ``microbeseg_tpu/ops/pallas/flood.py::flood_tiled`` builds them:
+    ``qs`` = level << 24 inside the mask (levels from the frame's own min
+    and max) and ``BIG_KEY`` outside, ``key0`` = ``qs | marker`` at the
+    seeds and ``BIG_KEY`` elsewhere."""
+    value = value.to(torch.float32)
+    mask = mask.to(torch.bool)
+    q = quantize_levels(value, mask, n_levels)
+    big = torch.full_like(q, BIG_KEY)
+    qs = torch.where(mask, q << TILED_LABEL_BITS, big)
+    seeded = mask & (markers > 0)
+    key0 = torch.where(seeded, qs | markers.to(torch.int32), big)
+    return qs, key0
+
+
+def flood_planes_plain(qs: torch.Tensor, key0: torch.Tensor, n_levels: int,
+                       inner_steps: int = _INNER_STEPS) -> torch.Tensor:
+    """The frame flood on its two planes in plain PyTorch: every level step
+    and every cleanup step of the TPU kernel ``_packed_flood_kernel``.
+    (B, H, W) int32 planes -> int32 labels.  Outside the frame a neighbour
+    reads ``BIG_KEY`` (the TPU kernel wraps around and has its caller keep
+    the outermost ring out of the mask)."""
+    label_mask = (1 << TILED_LABEL_BITS) - 1
+    H, W = qs.shape[-2:]
+    key = key0
+    for lvl in range(n_levels):
+        active = qs <= (lvl << TILED_LABEL_BITS)
+        for _ in range(inner_steps):
+            key = _key_step(key, qs, active, label_mask)
+    in_mask = qs < BIG_KEY
+    for _ in range(H * W):  # the geodesic bound; stops at the fixed point
+        new = _key_step(key, qs, in_mask, label_mask)
+        if torch.equal(new, key):
+            break
+        key = new
+    return torch.where(key < BIG_KEY, key & label_mask, 0)
+
+
+def _check_tiled(n_levels: int) -> None:
+    if n_levels > 128:
+        raise ValueError(f"24 label bits leave 7 level bits: n_levels "
+                         f"{n_levels} > 128 would overflow the int32 key")
+
+
+def flood_tiled_plain(value: torch.Tensor, markers: torch.Tensor,
+                      mask: torch.Tensor,
+                      n_levels: int = 128) -> torch.Tensor:
+    """``flood_tiled`` in plain PyTorch: the planes, then every step on the
+    whole frame.  (B, H, W) or (H, W) -> int32."""
+    _check_tiled(n_levels)
+    squeeze, value, markers, mask = _as_batch(value, markers, mask)
+    qs, key0 = packed_planes(value, markers, mask, n_levels)
+    out = flood_planes_plain(qs, key0, n_levels)
+    return out[0] if squeeze else out
+
+
+def flood_tiled(value: torch.Tensor, markers: torch.Tensor,
+                mask: torch.Tensor, n_levels: int = 128,
+                steps_out: torch.Tensor = None,
+                work_out: torch.Tensor = None) -> torch.Tensor:
+    """Packed-key flood of whole frames of any size with 24 label bits:
+    value (B, H, W) f32 (lower floods first), markers (B, H, W) int32
+    (< 2**24 - 1), mask (B, H, W) bool -> (B, H, W) int32 labels; each frame
+    is quantised with its own min and max.  CPU tensors run the plain
+    version.  On the card the planes are built in PyTorch and the kernel
+    floods the frames one after the other, each on the whole card.
+
+    ``steps_out`` and ``work_out`` as in ``flood_packed``."""
+    if value.device.type == "cpu":
+        return flood_tiled_plain(value, markers, mask, n_levels)
+    if value.device.type != "cuda":
+        raise RuntimeError(f"flood_tiled: unsupported device {value.device}")
+    _check_tiled(n_levels)
+    squeeze, value, markers, mask = _as_batch(value, markers, mask)
+    B, H, W = value.shape
+    if H * W >= _MAX_PIXELS:
+        raise ValueError(f"flood_tiled takes frames below {_MAX_PIXELS} "
+                         f"pixels, got {H}x{W}")
+    dev = value.device
+    qs, key0 = packed_planes(value, markers.to(dev), mask.to(dev), n_levels)
+    qs, key0 = qs.contiguous(), key0.contiguous()
+    out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+    scratch = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+    flags = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+    if steps_out is None:
+        steps_out = torch.empty((B,), dtype=torch.int32, device=dev)
+    _check_work_out(work_out, B, dev)
+    fn = _build.load("flood_frame").flood_frame_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    with torch.cuda.device(dev):  # the launch sizes its grid for this card
+        err = fn(_build.ptr(qs), _build.ptr(key0), _build.ptr(scratch),
+                 _build.ptr(out), _build.ptr(flags), _build.ptr(steps_out),
+                 None if work_out is None else _build.ptr(work_out), B, H, W,
+                 n_levels, _INNER_STEPS, H * W, _build.stream_ptr(value))
+    _build.check(err, "flood_tiled")
+    _build.LAUNCHES["flood_tiled"] += 1
+    return out[0] if squeeze else out
+
+
 def packed_label_bits(side: int, n_levels: int, max_label: int):
     """Label bits of the packed key for frames whose larger side is
-    ``side``: 12 when ``max_label < 4096``, else 24; None when the packed
-    key cannot carry the labels.  Sides above 768 need the tiled flood
-    (K2), which is not ported yet."""
-    if side > MAX_SIDE:
-        raise NotImplementedError(
-            f"frames with a side above {MAX_SIDE} need the tiled flood (K2), "
-            "ROADMAP Queue 1 item 6")
-    if max_label < (1 << 12) and n_levels <= (1 << 19):
+    ``side``: up to 768, 12 when ``max_label < 4096``, else 24; above 768
+    always 24 (``flood_tiled``).  None when the packed key cannot carry the
+    labels.  (127 << 24) | 0xFFFFFF equals ``BIG_KEY``, hence the - 1."""
+    if (side <= MAX_SIDE and max_label < (1 << 12)
+            and n_levels <= (1 << 19)):
         return 12
     if max_label < (1 << 24) - 1 and n_levels <= 128:
         return 24
@@ -172,10 +287,14 @@ def packed_label_bits(side: int, n_levels: int, max_label: int):
 def flood_or_fallback(value, markers, mask, n_levels: int = 128,
                       max_label: int = 4095) -> torch.Tensor:
     """Route by frame side and label capacity, as the JAX package does:
-    the packed flood with the bits of ``packed_label_bits``.  Labels the
-    packed key cannot carry take the ``watershed`` flood on the CPU; on the
-    card that flood has no kernel yet, so they raise."""
-    bits = packed_label_bits(max(value.shape[-2:]), n_levels, max_label)
+    sides up to 768 take ``flood_packed`` with the bits of
+    ``packed_label_bits``, larger frames ``flood_tiled``.  Labels the packed
+    key cannot carry take the ``watershed`` flood on the CPU; on the card
+    that flood has no kernel yet, so they raise."""
+    side = max(value.shape[-2:])
+    bits = packed_label_bits(side, n_levels, max_label)
+    if bits is not None and side > MAX_SIDE:
+        return flood_tiled(value, markers, mask, n_levels=n_levels)
     if bits is not None:
         return flood_packed(value, markers, mask, n_levels=n_levels,
                             label_bits=bits)

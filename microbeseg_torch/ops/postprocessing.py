@@ -1,15 +1,18 @@
-"""Distance-method instance extraction, batched over frames.
+"""Instance extraction from CNN predictions, batched over frames.
 
-Port of ``microbeseg_tpu/ops/postprocessing.py::distance_postprocessing``:
-gaussian smoothing, seed thresholding, connected components, root-rank
-relabel, small-seed prune, then the marker flood -> uint16 masks.  The JAX
-function works on one frame and the engine vmaps it; here the batch axis is
-explicit, and the quantisation and the prune statistics stay per image.
+Port of ``microbeseg_tpu/ops/postprocessing.py``: the distance method
+(gaussian smoothing, seed thresholding, connected components, root-rank
+relabel, small-seed prune, then the marker flood -> uint16 masks), the
+boundary method (argmax mask, seeds from cell and boundary probability, the
+same prune and flood) and the distance method over a grid of threshold
+pairs.  The JAX functions work on one frame and the engine vmaps them; here
+the batch axis is explicit, and the quantisation and the prune statistics
+stay per image.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Sequence, Union
 
 import torch
 
@@ -81,24 +84,14 @@ def _distance_postprocessing(border_prediction, cell_prediction, th_seed,
     """``distance_postprocessing`` with its kernels as arguments, so that
     the plain versions can run on the card as the kernels' reference.
     ``flood_fn(value, markers, mask, n_levels=, max_label=)`` is the
-    'pallas' method's flood."""
+    'pallas' method's flood.  Thresholds may be (B, 1, 1) tensors, one pair
+    per image (the threshold grid)."""
     squeeze = cell_prediction.ndim == 2
     if squeeze:
         border_prediction = border_prediction[None]
         cell_prediction = cell_prediction[None]
     dev = cell_prediction.device
-    if method == "auto":
-        if dev.type == "cpu":
-            method = "flood"
-        elif max_seeds < _MAX_PACKED:
-            method = "pallas"
-        else:
-            raise NotImplementedError(
-                f"max_seeds {max_seeds} does not fit the packed key; the card "
-                "has no kernel for the watershed flood yet (ROADMAP Queue 1 "
-                "item 13)")
-    if method not in ("flood", "pallas"):
-        raise ValueError(f"unknown post-processing method {method!r}")
+    method = _resolve_method(method, dev, max_seeds)
     th_seed = torch.as_tensor(th_seed, dtype=torch.float32, device=dev)
     th_cell = torch.as_tensor(th_cell, dtype=torch.float32, device=dev)
 
@@ -113,14 +106,90 @@ def _distance_postprocessing(border_prediction, cell_prediction, th_seed,
     seeds = _prune_small_seeds(seeds_bin, min_area_floor=4.0, rel_mean=0.10,
                                max_seeds=max_seeds, cc_fn=cc_fn,
                                rank_fn=rank_fn)
+    cell = cell.expand(mask.shape)  # one map under a grid of thresholds
+    labels = _flood(method, -cell, seeds, mask, n_levels, max_seeds, flood_fn)
+    return labels[0] if squeeze else labels
+
+
+def _resolve_method(method: str, dev: torch.device, max_seeds: int) -> str:
+    if method == "auto":
+        if dev.type == "cpu":
+            return "flood"
+        if max_seeds < _MAX_PACKED:
+            return "pallas"
+        raise NotImplementedError(
+            f"max_seeds {max_seeds} does not fit the packed key; the card "
+            "has no kernel for the watershed flood yet (ROADMAP Queue 1 "
+            "item 13)")
+    if method not in ("flood", "pallas"):
+        raise ValueError(f"unknown post-processing method {method!r}")
+    return method
+
+
+def _flood(method, value, seeds, mask, n_levels, max_seeds, flood_fn):
+    """The marker flood of both methods -> uint16 labels."""
     if method == "pallas":
         if max_seeds >= _MAX_PACKED:
             raise ValueError(
                 f"method='pallas' supports max_seeds < 2^24-1, got "
                 f"{max_seeds} (use method='auto'/'flood')")
-        labels = flood_fn(-cell, seeds, mask, n_levels=n_levels,
+        labels = flood_fn(value, seeds, mask, n_levels=n_levels,
                           max_label=max_seeds)
     else:
-        labels = watershed(-cell, seeds, mask, n_levels=n_levels)
-    labels = labels.to(torch.uint16)
+        labels = watershed(value, seeds, mask, n_levels=n_levels)
+    return labels.to(torch.uint16)
+
+
+def boundary_postprocessing(prediction: torch.Tensor,
+                            max_seeds: int = 256) -> torch.Tensor:
+    """Boundary-method post-processing of (B, H, W, 3) or (H, W, 3) softmax
+    probabilities (background, cell, boundary) -> uint16 instance masks.
+    The mask is the argmax's cell class, seeds are
+    ``p_cell * (1 - p_boundary) > 0.5`` with areas above 4, and the flood
+    runs on the negated mask with 2 levels: the packed-key flood on CUDA,
+    the ``watershed`` flood on the CPU."""
+    return _boundary_postprocessing(prediction, max_seeds)
+
+
+def _boundary_postprocessing(prediction, max_seeds=256, method="auto",
+                             cc_fn=cc.connected_components,
+                             rank_fn=cc.sequentialize_components,
+                             flood_fn=flood.flood_or_fallback):
+    """``boundary_postprocessing`` with its kernels as arguments (see
+    ``_distance_postprocessing``)."""
+    squeeze = prediction.ndim == 3
+    if squeeze:
+        prediction = prediction[None]
+    method = _resolve_method(method, prediction.device, max_seeds)
+    prediction = prediction.to(torch.float32)
+    mask = torch.argmax(prediction, dim=-1) == 1
+    seeds_bin = (prediction[..., 1] * (1.0 - prediction[..., 2])) > 0.5
+    seeds = _prune_small_seeds(seeds_bin, min_area_floor=4.0, rel_mean=0.0,
+                               max_seeds=max_seeds, cc_fn=cc_fn,
+                               rank_fn=rank_fn)
+    labels = _flood(method, -mask.to(torch.float32), seeds, mask, 2,
+                    max_seeds, flood_fn)
     return labels[0] if squeeze else labels
+
+
+def distance_postprocessing_grid(border_prediction: torch.Tensor,
+                                 cell_prediction: torch.Tensor,
+                                 th_pairs: Union[torch.Tensor, Sequence],
+                                 max_seeds: int = 256,
+                                 n_levels: int = 128) -> torch.Tensor:
+    """Threshold grid on one frame: (H, W) predictions and th_pairs (n, 2)
+    of (th_cell, th_seed) -> (n, H, W) uint16 masks.  The n pairs go through
+    post-processing as one batch of n images; frames with a side above 768
+    take the pairs one after the other, which bounds the memory."""
+    dev = cell_prediction.device
+    pairs = torch.as_tensor(th_pairs, dtype=torch.float32, device=dev)
+    th_cell = pairs[:, 0].view(-1, 1, 1)
+    th_seed = pairs[:, 1].view(-1, 1, 1)
+    border, cell = border_prediction[None], cell_prediction[None]
+    if max(cell_prediction.shape[-2:]) <= flood.MAX_SIDE:
+        return distance_postprocessing(border, cell, th_seed, th_cell,
+                                       max_seeds=max_seeds, n_levels=n_levels)
+    return torch.cat([
+        distance_postprocessing(border, cell, th_seed[i], th_cell[i],
+                                max_seeds=max_seeds, n_levels=n_levels)
+        for i in range(pairs.shape[0])])

@@ -56,3 +56,26 @@ def test_kernels_match_plain(dev, shape):
             flood_packed(v, markers, mask, label_bits=bits),
             flood_packed_plain(v, markers, mask, label_bits=bits),
             rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 800, 800), (2, 12, 900)])
+def test_frame_flood_matches_plain(dev, shape):
+    """K2 on frames with a side above 768, markers above 4095."""
+    from microbeseg_torch.ops.kernels.flood import (
+        flood_or_fallback, flood_tiled, flood_tiled_plain)
+
+    cell, _ = _fields(sum(shape), *shape)
+    v = torch.from_numpy(-cell).to(dev)
+    mask = v < -0.1
+    rank = cc.sequentialize_components(cc.connected_components(v < -0.6))
+    markers = torch.where(rank > 0, rank + 5000, 0)
+    for n_levels in (128, 2):
+        got = flood_tiled(v, markers, mask, n_levels=n_levels)
+        torch.testing.assert_close(
+            got, flood_tiled_plain(v, markers, mask, n_levels=n_levels),
+            rtol=0, atol=0)
+    assert int(got.max()) > 5000
+    torch.testing.assert_close(
+        flood_or_fallback(v, markers, mask, n_levels=2, max_label=6000), got,
+        rtol=0, atol=0)

@@ -70,9 +70,15 @@ class TestFloodK1:
         np.testing.assert_array_equal(small.numpy(), wide.numpy())
         with pytest.raises(ValueError, match="packed key overflow"):
             flood_packed(*args, n_levels=1 << 20, label_bits=12)
+        # a side above 768 routes to the frame flood (24 label bits)
         big = torch.zeros((1, 8, 800))
-        with pytest.raises(NotImplementedError, match="K2"):
-            flood_or_fallback(big, big.int(), big > 0)
+        big[0, 2:6, 100:700] = 1.0
+        seed = torch.zeros((1, 8, 800), dtype=torch.int32)
+        seed[0, 4, 400] = 5000
+        out = flood_or_fallback(-big, seed, big > 0)
+        assert out.shape == big.shape
+        assert set(out.unique().tolist()) == {0, 5000}
+        np.testing.assert_array_equal((out > 0).numpy(), (big > 0).numpy())
 
     def test_unpackable_labels_take_watershed_on_cpu_only(self):
         """Labels the packed key cannot carry take the 'flood' watershed on

@@ -17,6 +17,17 @@ from tests.conftest import synthetic_blobs
 from tests.oracles import distance_label_oracle, regionprops_oracle
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """The suite runs in several worker processes at once; torch's default
+    of one thread per core in each of them oversubscribes the cores, and
+    the step loops here are thousands of small tensor operations."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _predictions(rng, shape=(64, 64), n_blobs=6):
     mask = synthetic_blobs(rng, shape=shape, n_blobs=n_blobs)
     props = regionprops_oracle(mask)
@@ -145,3 +156,124 @@ def test_empty_and_constant_predictions():
         assert out.shape == (2, 32, 32) and int(out.sum()) == 0
     single = tpp.distance_postprocessing(z[0], z[0] + 1.0, 0.45, 0.10)
     assert single.shape == (32, 32)
+
+
+def _boundary_probs(seed, n=3, shape=(64, 64)):
+    """Softmax maps (n, H, W, 3) with cells ringed by a boundary class."""
+    from scipy import ndimage
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        inst = synthetic_blobs(rng, shape=shape, n_blobs=6)
+        mask = inst > 0
+        inner = np.zeros(shape, bool)
+        for k in np.unique(inst)[1:]:  # each cell gets its own ring
+            inner |= ndimage.binary_erosion(inst == k, iterations=2)
+        logits = rng.normal(0, 0.4, shape + (3,)).astype(np.float32)
+        logits[..., 0] += 3.0 * ~mask
+        logits[..., 1] += 3.0 * inner
+        logits[..., 2] += 3.0 * (mask & ~inner)
+        e = np.exp(logits - logits.max(-1, keepdims=True))
+        out.append((e / e.sum(-1, keepdims=True)).astype(np.float32))
+    return np.stack(out)
+
+
+def test_boundary_postprocessing_matches_jax():
+    """Same softmax maps, the watershed flood on both sides: identical."""
+    probs = _boundary_probs(4)
+    ours = tpp.boundary_postprocessing(torch.from_numpy(probs)).numpy()
+    assert ours.dtype == np.uint16 and ours.shape == probs.shape[:3]
+    for i in range(len(probs)):
+        ref = np.asarray(jpp.boundary_postprocessing(jnp.asarray(probs[i])))
+        np.testing.assert_array_equal(ours[i], ref)
+        assert ref.max() >= 3
+    single = tpp.boundary_postprocessing(torch.from_numpy(probs[0]))
+    np.testing.assert_array_equal(single.numpy(), ours[0])
+
+
+def test_boundary_packed_flood_matches_jax_pallas_interpret():
+    """The card's route ('pallas': the packed flood with 2 levels) against
+    JAX's prune and ``flood_pallas`` in interpret mode."""
+    from microbeseg_tpu.ops.pallas.flood import flood_pallas
+
+    probs = _boundary_probs(5, n=2)
+    ours = tpp._boundary_postprocessing(torch.from_numpy(probs),
+                                        method="pallas").numpy()
+    for i in range(len(probs)):
+        p = jnp.asarray(probs[i])
+        mask = jnp.argmax(p, axis=-1) == 1
+        seeds = jpp._prune_small_seeds((p[..., 1] * (1.0 - p[..., 2])) > 0.5,
+                                       4.0, 0.0, max_seeds=256)
+        ref = np.asarray(flood_pallas(-mask.astype(jnp.float32), seeds, mask,
+                                      n_levels=2, label_bits=12,
+                                      interpret=True))
+        np.testing.assert_array_equal(ours[i], ref.astype(np.uint16))
+        assert ref.max() >= 3
+
+
+def test_threshold_grid_matches_jax_and_single_calls():
+    """8 threshold pairs as one batch: identical to JAX's vmapped grid and
+    to 8 single calls of the port."""
+    border, cell = _batch(6, n=1)
+    pairs = np.array([(tc, ts) for tc in (0.05, 0.10, 0.15, 0.20)
+                      for ts in (0.35, 0.45)], np.float32)
+    ours = tpp.distance_postprocessing_grid(
+        torch.from_numpy(border[0]), torch.from_numpy(cell[0]), pairs).numpy()
+    assert ours.shape == (8, 64, 64) and ours.dtype == np.uint16
+    ref = np.asarray(jpp.distance_postprocessing_grid(
+        jnp.asarray(border[0]), jnp.asarray(cell[0]), jnp.asarray(pairs)))
+    np.testing.assert_array_equal(ours, ref)
+    for i, (tc, ts) in enumerate(pairs):
+        one = tpp.distance_postprocessing(
+            torch.from_numpy(border[0]), torch.from_numpy(cell[0]),
+            float(ts), float(tc)).numpy()
+        np.testing.assert_array_equal(ours[i], one)
+    assert len({int(m.sum()) for m in ours}) > 1  # the thresholds matter
+
+
+def test_threshold_grid_big_side_runs_pair_by_pair():
+    """A side above 768 takes the pairs one after the other; same masks."""
+    rng = np.random.default_rng(8)
+    border, cell = _predictions(rng, shape=(48, 800), n_blobs=6)
+    pairs = [(0.10, 0.45), (0.20, 0.35)]
+    ours = tpp.distance_postprocessing_grid(
+        torch.from_numpy(border), torch.from_numpy(cell), pairs).numpy()
+    assert ours.shape == (2, 48, 800)
+    for i, (tc, ts) in enumerate(pairs):
+        ref = np.asarray(jpp.distance_postprocessing(
+            jnp.asarray(border), jnp.asarray(cell), jnp.float32(ts),
+            jnp.float32(tc), method="flood"))
+        np.testing.assert_array_equal(ours[i], ref)
+
+
+def test_prune_at_the_largest_seed_cap():
+    """max_seeds 32768 (a 2048^2 frame's cap): the area table has 131073
+    entries, ids stay within uint16, and the port equals JAX."""
+    seeds = np.zeros((1, 96, 96), bool)
+    for k in range(200):
+        cy, cx = 4 + 6 * (k // 15), 3 + 6 * (k % 15)
+        seeds[0, cy:cy + 3, cx:cx + 3] = True
+    ours = tpp._prune_small_seeds(torch.from_numpy(seeds), 4.0, 0.10,
+                                  max_seeds=32768).numpy()
+    ref = np.asarray(jpp._prune_small_seeds(
+        jnp.asarray(seeds[0]), min_area_floor=4.0, rel_mean=0.10,
+        max_seeds=32768))
+    np.testing.assert_array_equal(ours[0], ref)
+    assert ours.max() == 200
+
+
+def test_packed_method_on_a_big_side_takes_the_frame_flood():
+    """method='pallas' on a side above 768 routes to ``flood_tiled`` (24
+    label bits, the whole frame as one window): identical coverage and
+    per-instance IoU >= 0.99 against the watershed flood, the JAX suite's
+    bar for its tiled flood."""
+    rng = np.random.default_rng(9)
+    border, cell = _predictions(rng, shape=(48, 800), n_blobs=6)
+    args = (torch.from_numpy(border), torch.from_numpy(cell), 0.45, 0.10)
+    packed = tpp.distance_postprocessing(*args, method="pallas").numpy()
+    ref = tpp.distance_postprocessing(*args, method="flood").numpy()
+    assert ref.max() >= 3
+    assert np.array_equal(packed > 0, ref > 0)
+    for k in range(1, int(ref.max()) + 1):
+        a, b = packed == k, ref == k
+        assert (a & b).sum() / max((a | b).sum(), 1) >= 0.99
