@@ -12,7 +12,12 @@
    with CUDA events: K1 flood, K3 connected components and K4 rank relabel
    at 16 x 256^2 on seeded blob fields and a speckle field; K2, the frame
    flood, with markers above 4095 on 2 x 1024^2, 1000 x 1400 and one 2048^2
-   field; K3 and K4 again on one 2048^2 field.
+   field; K3 and K4 again on one 2048^2 field.  K5, the tensor-core matrix
+   product, at 2048^3, at every shape the int8 paths give it (M = 2^20 on
+   16 crops, 2^21 and 2^19 on 8 tiles of 512^2; K = 576, 1152 or 2304; N =
+   64 or 128) and at the ragged 1000 x 200 x 72: int8 exactly equal to its
+   plain version, bf16 within one bfloat16 step of it, each timed beside
+   ``torch._int_mm`` / ``torch.matmul``.
 4. Crop path: builds the full-width distance DUNet (filters 64 -> 1024, bn,
    relu, conv pooling) with numpy-seeded weights and runs
    ``InferenceEngine.segment`` on 48 uint16 frames of 256^2 (3 batches of
@@ -37,6 +42,21 @@
    post-processing equals the plain one; ``scale_factor=0.5`` and
    ``apply_clahe=True`` give finite predictions that agree with the same
    engine on the CPU at the bf16 tolerance.
+
+7. int8 path: the same model and the same 48 crops through ``segment`` with
+   ``InferConfig(quantize=True)``.  Checks that calibration ran once (5
+   layers with a positive maximum), that K5 launched 5 times per batch of 16
+   (the calibration pass's launches counted apart), that the predictions
+   equal, bit for bit, those of the same engine on the plain int8 product,
+   and that a second ``segment`` call returns the same masks.  Times
+   ``segment`` and the forward beside the bf16 engine's, and reports how far
+   the int8 fields and masks are from the bf16 ones (numbers, not gates: the
+   weights are random).  Then one 2048^2 frame, tiled, with
+   ``quantize=True``: tile calibration, 11 K5 launches per tile call, and
+   stitched predictions equal to those on the plain int8 product.
+8. The inference CLI: ``microbeseg_torch.cli.infer_local --quantize`` on a
+   folder of two TIFFs, from a checkpoint of the seeded model that
+   ``save_model`` wrote; its masks equal the engine's on the same files.
 
 The next-to-last line of stdout is a JSON object with one entry per kernel,
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -63,6 +83,19 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 # add, compare, min and max (CUDA C++ Programming Guide, arithmetic
 # instruction throughput, compute capability 9.0) x 1.98 GHz boost clock
 INT_OPS_PER_S = 132 * 64 * 1.98e9
+# H100 SXM dense tensor-core peaks (NVIDIA data sheet)
+INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
+# K5's shapes (M, K, N): the probe's; every shape the int8 layers give it
+# on 16 crops of 256^2 (level 0: enc0.conv1 and the decoders' conv1, K = 576;
+# the decoders' conv0, K = 1152) and on 8 tiles of 512^2 (level 0 at 512^2,
+# level 1 at 256^2 with K up to 2304); and a ragged one
+MATMUL_CROP_SHAPE = (B * SIDE * SIDE, 576, 64)
+MATMUL_SHAPES = ((2048, 2048, 2048), MATMUL_CROP_SHAPE,
+                 (B * SIDE * SIDE, 1152, 64),
+                 (8 * 512 * 512, 576, 64), (8 * 512 * 512, 1152, 64),
+                 (8 * 256 * 256, 576, 128), (8 * 256 * 256, 1152, 128),
+                 (8 * 256 * 256, 2304, 128), (1000, 200, 72))
 
 
 def card_line() -> str:
@@ -273,6 +306,7 @@ def check_kernels(dev, report):
         steps_per_image=n_steps / B, candidates_per_image=n_work / B,
         in_mask_share=float(in_mask.sum()) / px)
     check_big_kernels(dev, rng, results, exact)
+    check_matmul(dev, results)
     for r in results.values():
         for suffix in ("", "_2048"):
             if "bytes" + suffix not in r:
@@ -293,6 +327,14 @@ def check_kernels(dev, report):
             print(f"{name} at {BIG}^2: {r['ms_2048']:.5f} ms, plain "
                   f"{r['plain_ms_2048']:.4f} ms, bound "
                   f"{r['bound_ms_2048']:.6f} ms", flush=True)
+        for shape, by_type in r.get("shapes", {}).items():
+            for kind, t in by_type.items():
+                lib = t["library_ms"]
+                print(f"matmul_{kind} {shape}: {t['ms']:.5f} ms, plain "
+                      f"{t['plain_ms']:.4f} ms, library "
+                      f"{'none' if lib is None else format(lib, '.5f')} ms, "
+                      f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}), max "
+                      f"abs err {t['max_abs_err']:.4g}", flush=True)
 
 
 def check_big_kernels(dev, rng, results, exact):
@@ -368,6 +410,79 @@ def check_big_kernels(dev, rng, results, exact):
             lambda: cc.sequentialize_components_plain(labels), 1, warmup=1),
         library_ms_2048=cuda_ms(lambda: torch.gather(table, 1, idx), 20),
         bytes_2048=px * (4 + 4), ops_2048=px * 8)
+
+
+def bound(n_bytes, n_ops, ops_per_s):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_matmul(dev, results):
+    """K5 against its plain versions: int8 exactly equal; bf16 within one
+    bfloat16 step (2^-7 relative: both round a float32 sum to bfloat16, and
+    the two sums, taken in different orders, may fall on either side of a
+    rounding boundary) plus 1e-6 K max|a| max|b| for the float32 sums' own
+    difference near zero.  Each is timed beside the one PyTorch call that
+    computes the same product."""
+    from microbeseg_torch.ops.kernels import matmul as mm
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    shapes = {}
+    for M, K, N in MATMUL_SHAPES:
+        reps = 10 if M * K > 1 << 26 else 50
+        a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device=dev,
+                          generator=gen)
+        b = torch.randint(-127, 128, (K, N), dtype=torch.int8, device=dev,
+                          generator=gen)
+        got = mm.matmul_int8(a, b)
+        if not torch.equal(got, mm.matmul_int8_plain(a, b)):
+            raise AssertionError(f"K5 int8 differs from plain at {M}x{K}x{N}")
+        has_lib = K % 8 == 0 and N % 8 == 0 and M > 16  # torch._int_mm's limits
+        if has_lib and not torch.equal(got, torch._int_mm(a, b)):
+            raise AssertionError(f"K5 int8 differs from torch._int_mm at "
+                                 f"{M}x{K}x{N}")
+        del got
+        int8 = dict(
+            max_abs_err=0,
+            ms=cuda_ms(lambda: mm.matmul_int8(a, b), reps),
+            plain_ms=cuda_ms(lambda: mm.matmul_int8_plain(a, b), 2, warmup=1),
+            library_ms=(cuda_ms(lambda: torch._int_mm(a, b), reps)
+                        if has_lib else None),
+            **bound(M * K + K * N + 4 * M * N, 2 * M * K * N, INT8_OPS_PER_S))
+        del a, b
+
+        a = torch.randn((M, K), dtype=torch.bfloat16, device=dev,
+                        generator=gen)
+        b = torch.randn((K, N), dtype=torch.bfloat16, device=dev,
+                        generator=gen)
+        got = mm.matmul_bf16(a, b).float()
+        ref = mm.matmul_bf16_plain(a, b).float()
+        atol = 1e-6 * K * float(a.abs().max()) * float(b.abs().max())
+        err = (got - ref).abs()
+        if not bool((err <= 2.0 ** -7 * ref.abs() + atol).all()):
+            raise AssertionError(f"K5 bf16 beyond one bfloat16 step of plain "
+                                 f"at {M}x{K}x{N}: max abs err {err.max()}")
+        bf16 = dict(
+            max_abs_err=float(err.max()), rtol=2.0 ** -7, atol=atol,
+            share_differing=float((err > 0).float().mean()))
+        del got, ref, err
+        bf16.update(
+            ms=cuda_ms(lambda: mm.matmul_bf16(a, b), reps),
+            plain_ms=cuda_ms(lambda: mm.matmul_bf16_plain(a, b), 2, warmup=1),
+            library_ms=cuda_ms(lambda: torch.matmul(a, b), reps),
+            **bound(2 * (M * K + K * N + M * N), 2 * M * K * N,
+                    BF16_FLOPS_PER_S))
+        del a, b
+        shapes[f"{M}x{K}x{N}"] = dict(int8=int8, bf16=bf16)
+    torch.cuda.empty_cache()
+    # the entry's own numbers are the int8 product at the crop path's shape
+    crop = shapes["x".join(map(str, MATMUL_CROP_SHAPE))]["int8"]
+    results["matmul_int8"] = dict(
+        source="microbeseg_torch/csrc/matmul.cu",
+        replaces="scripts/bench_pallas_int8_dot.py:46",
+        shape=list(MATMUL_CROP_SHAPE), shapes=shapes, **crop)
 
 
 def plain_flood(value, markers, mask, n_levels, max_label):
@@ -461,6 +576,7 @@ def main_path(dev, report, model, cpu_model, n_params):
     warm = blob_frames(rng, B, SIDE)
     th_cell, th_seed = field_thresholds(engine, warm)
     engine.segment(warm, th_cell, th_seed)   # warm-up (cuDNN, kernels)
+    torch.cuda.reset_peak_memory_stats()
     masks, first_s, launches, n_inst = driven_segment(
         engine, frames, th_cell, th_seed,
         ("flood_packed", "connected_components", "sequentialize_components"))
@@ -695,6 +811,268 @@ def small_checks(dev, report, model, cpu_model, thresholds):
           flush=True)
 
 
+def masks_iou(a, b):
+    """Agreement of two instance masks: the area-weighted mean, over the
+    instances of both, of each instance's best IoU with an instance of the
+    other mask."""
+    a, b = a.astype(np.int64).ravel(), b.astype(np.int64).ravel()
+    na, nb = int(a.max()) + 1, int(b.max()) + 1
+    joint = np.bincount(a * nb + b, minlength=na * nb).reshape(na, nb)
+    area_a, area_b = joint.sum(1), joint.sum(0)
+    union = area_a[:, None] + area_b[None, :] - joint
+    iou = joint / np.maximum(union, 1)
+    iou[0, :] = iou[:, 0] = 0.0
+    weight = area_a[1:].sum() + area_b[1:].sum()
+    if weight == 0:
+        return 1.0
+    return float(((iou.max(1) * area_a)[1:].sum()
+                  + (iou.max(0) * area_b)[1:].sum()) / weight)
+
+
+def equal_on_plain_product(engine, frames, what):
+    """The engine's predictions for ``frames`` through K5 must equal, bit for
+    bit, those of the same engine with ``matmul_int8_plain`` in K5's place.
+    Returns the predictions."""
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models import blocks
+    from microbeseg_torch.ops.kernels.matmul import matmul_int8_plain
+
+    preds = engine._predict_raw_dev(frames)
+    kernel_fn = blocks.matmul_int8
+    blocks.matmul_int8 = matmul_int8_plain
+    try:
+        _build.reset_launches()
+        plain_preds = engine._predict_raw_dev(frames)
+        if _build.LAUNCHES["matmul_int8"]:
+            raise AssertionError(f"{what}: the plain run launched K5")
+    finally:
+        blocks.matmul_int8 = kernel_fn
+    for got, want in zip(preds, plain_preds):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{what}: non-finite int8 predictions")
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{what}: K5 differs from the plain product, max abs diff "
+                f"{(got - want).abs().max().item()}")
+    return preds
+
+
+def int8_path(dev, report, model, thresholds):
+    """Phase 7: ``InferConfig(quantize=True)`` on the crop path's frames, and
+    on one tiled 2048^2 frame."""
+    from microbeseg_torch.config import InferConfig
+    from microbeseg_torch.inference.engine import InferenceEngine
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models import blocks
+
+    th_cell, th_seed = thresholds
+    rng = np.random.default_rng(2)   # the crop path's frames
+    frames = blob_frames(rng, N_FRAMES, SIDE)
+    warm = blob_frames(rng, B, SIDE)
+    ref_engine = InferenceEngine(model, "distance", device=dev)
+    engine = InferenceEngine(model, "distance", device=dev,
+                             cfg=InferConfig(quantize=True))
+    if engine._quant_calibrated:
+        raise AssertionError("calibrated before the first frame")
+
+    # the first call calibrates (one pass of 4 crops) and runs one batch
+    _build.reset_launches()
+    engine.segment(warm, th_cell, th_seed)
+    layers = [m for m in engine.models[0].modules()
+              if isinstance(m, blocks.QuantConv) and m.calibrated]
+    amax = [float(m.act_amax) for m in layers]
+    per_batch = 5
+    calib_launches = _build.LAUNCHES["matmul_int8"] - per_batch
+    if (engine._quant_shapes != {(SIDE, SIDE)} or len(layers) != per_batch
+            or min(amax) <= 0 or calib_launches != per_batch):
+        raise AssertionError(
+            f"calibration: shapes {engine._quant_shapes}, maxima {amax}, "
+            f"{calib_launches} K5 launches in the calibration pass")
+    if any(getattr(m, "quantize", False) or getattr(m, "calibrated", False)
+           for m in model.modules()):
+        raise AssertionError("the int8 engine changed the caller's model")
+
+    torch.cuda.reset_peak_memory_stats()
+    masks, first_s, launches, n_inst = driven_segment(
+        engine, frames, th_cell, th_seed,
+        ("flood_packed", "connected_components", "sequentialize_components",
+         "matmul_int8"))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_batches = N_FRAMES // B
+    if launches["matmul_int8"] != per_batch * n_batches:
+        raise AssertionError(f"K5 launched {launches['matmul_int8']} times "
+                             f"on {n_batches} batches, expected "
+                             f"{per_batch * n_batches}")
+    if [float(m.act_amax) for m in layers] != amax:
+        raise AssertionError("a second calibration pass ran")
+    if not np.array_equal(engine.segment(frames, th_cell, th_seed), masks):
+        raise AssertionError("a second segment call gave other masks")
+
+    # the same engine on the plain int8 product: identical predictions
+    preds = equal_on_plain_product(engine, frames, "int8 crops")
+
+    # where one int8 layer's time goes: enc0.conv1 (64 -> 64) on the
+    # activations of one batch, stage by stage, beside the same layer on
+    # cuDNN
+    layer = engine.models[0].encoderConv[0].conv[3]
+    x = torch.randn((B, layer.in_channels, SIDE, SIDE), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(8))
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+        w_q, w_scale = layer.quantized_weight()
+        x_q, x_scale = layer.quantized_input(x)
+        taps = layer.tap_operand(x_q)
+        y = blocks.matmul_int8(taps, w_q).view(B, SIDE, SIDE, -1)
+        stages = dict(
+            quantize_weight=cuda_ms(layer.quantized_weight, 20),
+            quantize_input=cuda_ms(lambda: layer.quantized_input(x), 20),
+            tap_operand=cuda_ms(lambda: layer.tap_operand(x_q), 20),
+            matmul_int8=cuda_ms(lambda: blocks.matmul_int8(taps, w_q), 20),
+            dequantize=cuda_ms(
+                lambda: layer.dequantize(y, x_scale, w_scale, x), 20),
+            whole_layer=cuda_ms(lambda: layer.forward_int8(x), 20),
+            cudnn_bf16_layer=cuda_ms(lambda: layer(x), 20))
+    del x, x_q, taps, y
+    print("int8 layer 64 -> 64 on 16 x 256^2, ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
+
+    # against the bf16 engine: numbers, not gates (random weights)
+    ref_preds = ref_engine._predict_raw_dev(frames)
+    rel_rms = [float((g - r).square().mean().sqrt() / r.square().mean().sqrt())
+               for g, r in zip(preds, ref_preds)]
+    ref_masks = ref_engine.segment(frames, th_cell, th_seed)
+    ious = [masks_iou(m, r) for m, r in zip(masks, ref_masks)]
+
+    # timing, in turns: bf16, int8, int8, bf16
+    chunk = frames[:B]
+    seg_ref, seg_q, fwd_ref, fwd_q = [], [], [], []
+    for eng, seg, fwd in ((ref_engine, seg_ref, fwd_ref),
+                          (engine, seg_q, fwd_q), (engine, seg_q, fwd_q),
+                          (ref_engine, seg_ref, fwd_ref)):
+        seg.extend(timed_segment(eng, frames, th_cell, th_seed, reps=2))
+        fwd.append(cuda_ms(lambda: eng._predict_raw_dev(chunk), 5))
+    seg_med = statistics.median(seg_q)
+    out = dict(
+        frames=[N_FRAMES, SIDE, SIDE], batch=B, launches=launches,
+        calibration_launches=calib_launches, act_amax=amax,
+        instances_per_frame=n_inst, segment_first_s=first_s,
+        segment_s=seg_q, crops_per_s=N_FRAMES / seg_med,
+        forward_ms_per_batch=fwd_q, bf16_segment_s=seg_ref,
+        bf16_crops_per_s=N_FRAMES / statistics.median(seg_ref),
+        bf16_forward_ms_per_batch=fwd_ref,
+        rel_rms_vs_bf16={"border": rel_rms[0], "cell": rel_rms[1]},
+        mask_iou_vs_bf16=dict(min=min(ious), mean=statistics.mean(ious)),
+        layer_stage_ms=stages, peak_mem_gib=peak_gib)
+    print(f"int8 segment: {N_FRAMES} crops of {SIDE}^2 in {seg_med:.4f} s = "
+          f"{out['crops_per_s']:.1f} crops/s (bf16 beside it "
+          f"{out['bf16_crops_per_s']:.1f}); forward {min(fwd_q):.3f} ms per "
+          f"batch (bf16 {min(fwd_ref):.3f}); K5 launches "
+          f"{launches['matmul_int8']} + {calib_launches} calibrating; "
+          f"predictions equal the plain product's; vs bf16: relative RMS "
+          f"{rel_rms[0]:.4f} / {rel_rms[1]:.4f}, mask IoU min "
+          f"{min(ious):.4f} mean {statistics.mean(ious):.4f}; peak "
+          f"{peak_gib:.2f} GiB", flush=True)
+
+    # one tiled 2048^2 frame: tile calibration, 11 launches per tile call
+    cfg = InferConfig(use_tiling=True, quantize=True)
+    tiled = InferenceEngine(model, "distance", cfg=cfg, device=dev)
+    frame = big_blob_frames(np.random.default_rng(7), 1, BIG, BIG_BLOBS)
+    th_big = report["big_path"]["th_cell"], report["big_path"]["th_seed"]
+    torch.cuda.reset_peak_memory_stats()
+    big_masks, big_s, big_launches, big_inst = driven_segment(
+        tiled, frame, *th_big,
+        ("flood_tiled", "connected_components", "sequentialize_components",
+         "matmul_int8"))
+    n_tiles = report["big_path"]["tiles_per_frame"]
+    n_calls = -(-n_tiles // report["big_path"]["tiles_per_forward"])
+    n_cal = sum(m.calibrated for m in tiled.models[0].modules()
+                if isinstance(m, blocks.QuantConv))
+    if (big_launches["matmul_int8"] != 11 * (1 + n_calls) or n_cal != 11
+            or tiled._quant_shapes != {(cfg.tile_size, cfg.tile_size)}):
+        raise AssertionError(
+            f"tiled int8: {big_launches['matmul_int8']} K5 launches on 1 "
+            f"calibration pass + {n_calls} tile calls, {n_cal} calibrated "
+            f"layers, shapes {tiled._quant_shapes}")
+    t0 = time.perf_counter()
+    again = tiled.segment(frame, *th_big)
+    again_s = time.perf_counter() - t0
+    if not np.array_equal(again, big_masks):
+        raise AssertionError("tiled int8: a second call gave other masks")
+    out["tiled"] = dict(
+        frames=[1, BIG, BIG], launches=big_launches, tile_calls=n_calls,
+        calibrated_layers=n_cal, instances_per_frame=big_inst,
+        segment_first_s=big_s, segment_s=again_s,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    # every tile call of the frame (level 0 at M = 2^21, level 1 at 2^19) on
+    # the plain int8 product: identical stitched predictions
+    equal_on_plain_product(tiled, frame, "int8 tiles")
+    print(f"int8 tiled segment: one {BIG}^2 frame in {again_s:.4f} s; K5 "
+          f"launches {big_launches['matmul_int8']} = 11 x (1 calibrating + "
+          f"{n_calls} tile calls); predictions equal the plain product's; "
+          f"instances {big_inst}; peak "
+          f"{out['tiled']['peak_mem_gib']:.2f} GiB", flush=True)
+    report["int8_path"] = out
+    return [launches, big_launches]
+
+
+def cli_path(dev, report, model, thresholds):
+    """Phase 8: the inference CLI with ``--quantize`` on a small folder, from
+    a checkpoint of the seeded model written by ``save_model``."""
+    import tempfile
+
+    from microbeseg_torch.cli import infer_local
+    from microbeseg_torch.config import InferConfig, ModelConfig, TrainConfig
+    from microbeseg_torch.inference.engine import InferenceEngine
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models.io import save_model
+    from microbeseg_torch.utils.tiff import imread, imwrite
+
+    th_cell, th_seed = thresholds
+    frames = blob_frames(np.random.default_rng(9), 3, SIDE)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = save_model(model, TrainConfig(model=ModelConfig(),
+                                             run_name="smoke_01"),
+                          tmp / "models")
+        (tmp / "imgs").mkdir()
+        imwrite(tmp / "imgs" / "a_single.tif", frames[0])
+        imwrite(tmp / "imgs" / "b_stack.tif", frames[1:])
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rc = infer_local.main([
+            "-i", str(tmp / "imgs"), "-m", str(ckpt), "-r", str(tmp / "out"),
+            "-t", repr(th_cell), repr(th_seed), "-b", str(B), "--quantize"])
+        seconds = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        single = imread(tmp / "out" / "mask_a_single_channel0.tif")
+        stack = imread(tmp / "out" / "mask_b_stack_channel0.tif")
+    # one calibration pass on the first file, then one forward per file
+    if rc != 0 or launches["matmul_int8"] != 5 * 3:
+        raise AssertionError(f"CLI: exit {rc}, K5 launches "
+                             f"{launches['matmul_int8']}, expected 15")
+    if (single.shape != (SIDE, SIDE) or stack.shape != (2, SIDE, SIDE)
+            or single.dtype != np.uint16 or stack.dtype != np.uint16):
+        raise AssertionError(f"CLI masks {single.shape} {stack.shape}")
+    n_inst = [len(np.unique(m)) - 1 for m in (single, *stack)]
+    if min(n_inst) < 1:
+        raise AssertionError(f"CLI: frames without instances: {n_inst}")
+    # the same masks as an engine given the same files in the same order
+    engine = InferenceEngine(
+        model, "distance", device=dev,
+        cfg=InferConfig(th_cell=th_cell, th_seed=th_seed, batch_size=B,
+                        quantize=True))
+    if not (np.array_equal(engine.segment(frames[0]), single)
+            and np.array_equal(engine.segment(frames[1:]), stack)):
+        raise AssertionError("CLI masks differ from the engine's")
+    report["cli_path"] = dict(launches=launches, seconds=seconds,
+                              instances_per_frame=n_inst)
+    print(f"cli infer_local --quantize: 2 files, 3 frames in {seconds:.2f} s "
+          f"(checkpoint load included); K5 launches "
+          f"{launches['matmul_int8']}; instances/frame {n_inst}", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -723,15 +1101,19 @@ def main() -> int:
                                           n_params)
     big_launches = big_path(dev, report, model)
     small_checks(dev, report, model, cpu_model, thresholds)
+    int8_launches = int8_path(dev, report, model, thresholds)
+    cli_launches = cli_path(dev, report, model, thresholds)
     report["total_s"] = time.perf_counter() - t0
-    # launches: those of the two driven segment calls together
-    launches = {k: crop_launches[k] + big_launches[k] for k in crop_launches}
+    # launches: those of the driven segment and CLI calls together
+    driven = [crop_launches, big_launches, *int8_launches, cli_launches]
+    launches = {k: sum(d[k] for d in driven) for k in crop_launches}
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
-                    **{k: v for k, v in r.items() if k.endswith("_2048")})
+                    **{k: v for k, v in r.items()
+                       if k.endswith("_2048") or k in ("shape", "shapes")})
                for name, r in report["kernels"].items()]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -3,8 +3,8 @@
 Same argument contract and shape dispatch as
 ``microbeseg_tpu/cli/infer_local.py``.  Runs on the CUDA card; ``--device
 cpu`` runs on the CPU.  ``--sliding_window`` forces tiled inference with
-``--tile_size`` and ``--tile_overlap``; ``--quantize`` is not ported yet and
-raises ``NotImplementedError``.
+``--tile_size`` and ``--tile_overlap``; ``--quantize`` runs the large-spatial
+3x3 convolutions in int8 (not with an ensemble).
 
     python -m microbeseg_torch.cli.infer_local -i <tif dir> -m <model stem>
 """

@@ -15,12 +15,16 @@ the (D)U-Net in batches (bf16 autocast on CUDA) on one of two paths:
 Predictions scale back up to the frame, are post-processed on the device
 (distance or boundary method), and only uint16 masks come back.
 
-Not ported yet: ``quantize`` raises ``NotImplementedError`` (ROADMAP Queue 1
-item 12).
+With ``InferConfig.quantize`` the large-spatial 3x3 convolutions take their
+int8 path (``models.blocks.QuantConv``, kernel K5).  Their activation scales
+are calibrated once per padded shape, on the first frames or tiles of that
+shape; until then, and after a calibration pass that ran out of memory,
+a layer quantises with each sample's own maximum.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from pathlib import Path
 from typing import Optional, Sequence, Tuple, Union
@@ -34,7 +38,9 @@ from microbeseg_torch.inference.tiling import (
     stitch_tiles_device,
     tile_positions,
 )
+from microbeseg_torch.models.blocks import ConvBlock, QuantConv
 from microbeseg_torch.models.io import load_model
+from microbeseg_torch.models.unet import set_quantize
 from microbeseg_torch.ops.augment import clahe
 from microbeseg_torch.ops.postprocessing import (
     boundary_postprocessing,
@@ -62,8 +68,21 @@ class InferenceEngine:
         the CUDA card unless the caller passes ``"cpu"``."""
         self.device = resolve_device(device)
         self.cfg = cfg or InferConfig()
-        self._check_supported()
+        if self.cfg.quantize and extra:
+            raise ValueError("quantize is not supported for ensembles "
+                             "(per-member activation calibration is not "
+                             "implemented)")
         self.label_type = label_type
+        # padded (h, w) shapes whose calibration pass has run: larger frames
+        # quantise more layers, so each shape calibrates once.  None: the
+        # engine runs no int8 layer
+        self._quant_shapes: Optional[set] = None
+        if self.cfg.quantize and any(isinstance(m, ConvBlock)
+                                     for m in model.modules()):
+            # the engine's own copy: the int8 switch and the calibrated
+            # maxima must not show in the caller's model
+            model = set_quantize(copy.deepcopy(model))
+            self._quant_shapes = set()
         self.models = [m.to(self.device).eval() for m in (model, *extra)]
         if self.device.type == "cuda":
             self.models = [m.to(memory_format=torch.channels_last)
@@ -72,12 +91,6 @@ class InferenceEngine:
         self.max_seeds = max_seeds
         # out-of-memory fallbacks taken (zero predictions / masks)
         self.oom_count = 0
-
-    def _check_supported(self) -> None:
-        if self.cfg.quantize:
-            raise NotImplementedError(
-                "InferConfig quantize is not ported yet (ROADMAP Queue 1 "
-                "item 12)")
 
     @classmethod
     def from_checkpoint(cls, model_path: Union[str, Path],
@@ -102,6 +115,73 @@ class InferenceEngine:
                    device=device, extra=[m for m, _ in loaded[1:]])
 
     # ------------------------------------------------------------------
+
+    @property
+    def _quant_calibrated(self) -> bool:
+        return bool(self._quant_shapes)
+
+    def _quant_pending(self, h: int, w: int) -> bool:
+        """Whether padded shape (h, w) still waits for its calibration."""
+        return (self._quant_shapes is not None
+                and (h, w) not in self._quant_shapes)
+
+    def _ensure_quant_calibrated(self, sample: torch.Tensor) -> None:
+        """int8 activation-scale calibration on normalised, padded (b, h, w)
+        frames or tiles: one forward of at most 4 of them (and no more than
+        the device batch) on per-sample scales records each int8 layer's
+        ``|x|`` maximum, which merges into the layer's ``act_amax``; later
+        forwards quantise with that static scale.  Runs once per padded
+        shape.  A pass that runs out of memory leaves the layers as they
+        were and still marks the shape done."""
+        h, w = sample.shape[1:]
+        if not self._quant_pending(h, w):
+            return
+        b = max(1, min(4, self._device_batch(h, w), sample.shape[0]))
+        layers = [m for m in self.models[0].modules()
+                  if isinstance(m, QuantConv)]
+        for m in layers:
+            m.calibrating = True
+        try:
+            with torch.inference_mode(), torch.autocast(
+                    "cuda", dtype=torch.bfloat16,
+                    enabled=self.device.type == "cuda"):
+                self.models[0](sample[:b, ..., None])
+            for m in layers:
+                m.commit_calibration()
+        except torch.cuda.OutOfMemoryError:
+            pass
+        finally:
+            for m in layers:
+                m.calibrating = False
+                m._seen_amax = None
+        self._quant_shapes.add((h, w))
+
+    def _maybe_calibrate_bucket(self, raw: torch.Tensor, sh: int, sw: int,
+                                th: int, tw: int) -> None:
+        """Calibration sample of the bucket path: the first frames through
+        the forward's own normalise, scale and -1 pad chain."""
+        if not self._quant_pending(th, tw):
+            return
+        n = max(1, min(4, self._prep_chunk_cap(*raw.shape[1:])))
+        try:
+            x = self._prep_padded(raw[:n], sh, sw, th - sh, tw - sw)
+        except torch.cuda.OutOfMemoryError:
+            self._quant_shapes.add((th, tw))
+            return
+        self._ensure_quant_calibrated(x)
+
+    def _maybe_calibrate_tiles(self, raw: torch.Tensor, sh: int, sw: int,
+                               ph: int, pw: int, tile: int, pos) -> None:
+        """Calibration sample of the tiled path: the tiles of the first
+        frame, cut as the forward cuts them."""
+        if not self._quant_pending(tile, tile):
+            return
+        try:
+            tiles = self._cut_tiles(raw[:1], sh, sw, ph, pw, tile, pos)[0]
+        except torch.cuda.OutOfMemoryError:
+            self._quant_shapes.add((tile, tile))
+            return
+        self._ensure_quant_calibrated(tiles)
 
     def _seeds_cap(self, h: int, w: int) -> int:
         """Instance capacity of post-processing for an (h, w) frame: 256 at
@@ -163,6 +243,23 @@ class InferenceEngine:
         max are taken before any tile is cut."""
         return resize(self._prep_ops(raw), (sh, sw), "cubic")
 
+    def _prep_padded(self, raw: torch.Tensor, sh: int, sw: int, pad_y: int,
+                     pad_x: int) -> torch.Tensor:
+        """``_prep``, then the up-left pad to the bucket with -1 (the
+        normalised minimum)."""
+        return torch.nn.functional.pad(self._prep(raw, sh, sw),
+                                       (pad_x, 0, pad_y, 0), value=-1.0)
+
+    def _cut_tiles(self, raw: torch.Tensor, sh: int, sw: int, ph: int,
+                   pw: int, tile: int, pos) -> torch.Tensor:
+        """Raw (b, H, W) frames -> their normalised tiles (b, n, tile,
+        tile); a frame with a side below the tile is padded down-right with
+        -1 first."""
+        norm = self._prep(raw, sh, sw)
+        if ph or pw:
+            norm = torch.nn.functional.pad(norm, (0, pw, 0, ph), value=-1.0)
+        return extract_tiles_device(norm, tile, pos)
+
     def _net_apply(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """Model application on normalised, padded (B, H, W, 1) input:
         distance -> (border, cell) each (B, H, W); boundary -> (softmax
@@ -215,9 +312,8 @@ class InferenceEngine:
                        pad_x: int) -> Tuple[torch.Tensor, ...]:
         """Bucket path for raw (b, h, w) frames: prep, scale down, pad,
         forward, crop, scale back up -> float32 predictions at (h, w)."""
-        x = self._prep(raw, sh, sw)
-        x = torch.nn.functional.pad(x, (pad_x, 0, pad_y, 0), value=-1.0)
-        preds = self._forward(x, pad_y, pad_x)
+        preds = self._forward(self._prep_padded(raw, sh, sw, pad_y, pad_x),
+                              pad_y, pad_x)
         return tuple(resize(p, raw.shape[1:], "linear") for p in preds)
 
     def _zero_preds(self, b: int, h: int, w: int) -> Tuple[torch.Tensor, ...]:
@@ -263,6 +359,7 @@ class InferenceEngine:
         T, H, W = frames.shape
         bs = min(self._device_batch(th, tw), self._prep_chunk_cap(H, W))
         raw = self._upload(frames)
+        self._maybe_calibrate_bucket(raw, sh, sw, th, tw)
         outs = []
         for s in range(0, T, bs):
             chunk = raw[s:s + bs]
@@ -303,6 +400,7 @@ class InferenceEngine:
         bs0 = max(1, min(ideal, max(1, budget // n),
                          self._prep_chunk_cap(H, W), T))
         raw = self._upload(frames)
+        self._maybe_calibrate_tiles(raw, sh, sw, ph, pw, tile, pos)
         stitched = []
         for s in range(0, T, bs0):
             chunk = raw[s:s + bs0]
@@ -321,11 +419,8 @@ class InferenceEngine:
                      ) -> Tuple[torch.Tensor, ...]:
         """Raw (b, H, W) frames -> stitched predictions at (b, sh, sw)."""
         b, n = chunk.shape[0], len(pos)
-        norm = self._prep(chunk, sh, sw)
-        if ph or pw:
-            norm = torch.nn.functional.pad(norm, (0, pw, 0, ph), value=-1.0)
-        flat = extract_tiles_device(norm, tile, pos).reshape(b * n, tile,
-                                                             tile)
+        flat = self._cut_tiles(chunk, sh, sw, ph, pw, tile, pos).reshape(
+            b * n, tile, tile)
         preds = [self._forward(flat[ts:ts + bs_tile])
                  for ts in range(0, b * n, bs_tile)]
         full = (sh + ph, sw + pw)

@@ -28,12 +28,13 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flood", "flood_frame", "cc")
+SOURCES = ("flood", "flood_frame", "cc", "matmul")
 
 # launches per kernel wrapper (plain integers; reset with reset_launches)
 LAUNCHES: Dict[str, int] = {"flood_packed": 0, "flood_tiled": 0,
                             "connected_components": 0,
-                            "sequentialize_components": 0}
+                            "sequentialize_components": 0,
+                            "matmul_int8": 0, "matmul_bf16": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -4,6 +4,12 @@ Module and attribute names follow the reference's ``src/utils/unets.py``
 (``ConvBlock.conv`` = Sequential[conv, act, norm, conv, act, norm],
 ``ConvPool.conv_pool``, ``TranspConvBlock.up`` / ``.norm``), so a
 ``state_dict`` of these modules has the reference's keys.
+
+``QuantConv`` is the int8 3x3 convolution of ``InferConfig.quantize``: the
+same ``weight`` and ``bias`` as the ``nn.Conv2d`` it extends, and an int8
+path whose product runs through kernel K5 (``ops/kernels/matmul.py``).
+``_MatmulUp`` is the 2x2 stride-2 transposed convolution as one matrix
+product, with ``nn.ConvTranspose2d``'s parameters.
 """
 
 from __future__ import annotations
@@ -11,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from microbeseg_torch.ops.kernels.matmul import matmul_int8
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -54,20 +62,153 @@ def make_norm(kind: str, ch: int) -> nn.Module:
     raise ValueError(f"Unsupported normalization: {kind}")
 
 
+def _quantize_this(h: int, w: int, c_in: int, c_out: int) -> bool:
+    """Layer predicate of int8 inference, the JAX package's: only the 3x3
+    convolutions on at least 256^2 pixels with 8 to 256 input and at most
+    256 output channels take the int8 path.  The 1-channel input
+    convolution, the levels below 256^2 and the deep, wide levels stay in
+    the working float type, as do all 1x1, strided and transposed
+    convolutions."""
+    return h * w >= 256 * 256 and 8 <= c_in <= 256 and c_out <= 256
+
+
+def _compute_dtype(device_type: str) -> torch.dtype:
+    """The dtype a layer hands on: autocast's when it is on, else float32."""
+    if torch.is_autocast_enabled(device_type):
+        return torch.get_autocast_dtype(device_type)
+    return torch.float32
+
+
+def _in_format_of(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """NCHW ``y`` in the memory format of ``x`` (channels-last or not)."""
+    if x.is_contiguous(memory_format=torch.channels_last):
+        return y.contiguous(memory_format=torch.channels_last)
+    return y.contiguous()
+
+
+class QuantConv(nn.Conv2d):
+    """3x3 convolution, padding 1, with an int8 path for inference.
+
+    The parameters are ``nn.Conv2d``'s ``weight`` (O, I, 3, 3) and ``bias``,
+    so checkpoints are the same with and without int8; ``forward`` is
+    ``nn.Conv2d``'s.  ``forward_int8`` is the JAX package's ``QuantConv``:
+
+    - weights quantise per output channel, ``w_scale = max(|w|, 1e-12) /
+      127``, ``w_q = clip(round(w / w_scale), -127, 127)``;
+    - activations quantise with one scale per layer when the layer is
+      calibrated (``x_scale = max(act_amax, 1e-12) / 127``; values beyond
+      ``act_amax`` saturate), else with one per sample from that sample's
+      own ``|x|`` maximum;
+    - the convolution is the sum over the 9 taps of int8 products in int32:
+      the (B * H * W, 9 * C_in) operand of ``tap_operand`` times ``w_q`` as
+      (9 * C_in, C_out), through ``matmul_int8``;
+    - the result is ``y * (x_scale * w_scale) + bias`` in float32, cast to
+      the working dtype (autocast's, else float32).
+
+    Calibration: while ``calibrating`` is set, ``forward_int8`` runs on the
+    per-sample scales and keeps the batch's ``|x|`` maximum aside;
+    ``commit_calibration`` merges it into ``act_amax`` (a maximum, so it
+    only grows) and marks the layer calibrated.  ``act_amax`` is not part of
+    the ``state_dict``."""
+
+    def __init__(self, ch_in: int, ch_out: int):
+        super().__init__(ch_in, ch_out, 3, padding=1)
+        self.register_buffer("act_amax", torch.zeros(()), persistent=False)
+        self.calibrated = False
+        self.calibrating = False
+        self._seen_amax = None
+
+    def quantized_weight(self):
+        """(w_q (9 * C_in, C_out) int8 in tap order (dy, dx, c), w_scale
+        (C_out,) float32)."""
+        w = self.weight.detach().float().permute(2, 3, 1, 0)  # (3, 3, I, O)
+        w_scale = torch.clamp(w.abs().amax(dim=(0, 1, 2)), min=1e-12) / 127.0
+        w_q = torch.clamp(torch.round(w / w_scale), -127, 127).to(torch.int8)
+        return w_q.reshape(-1, w_q.shape[-1]), w_scale
+
+    def quantized_input(self, x: torch.Tensor):
+        """NCHW ``x`` -> (x_q (B, H, W, C) int8, x_scale: a scalar when
+        calibrated, else (B, 1, 1, 1)), both float32 arithmetic."""
+        xf = x.permute(0, 2, 3, 1).float()
+        if self.calibrating:
+            self._seen_amax = xf.abs().max()
+        if self.calibrated and not self.calibrating:
+            x_scale = torch.clamp(self.act_amax, min=1e-12) / 127.0
+        else:
+            x_amax = xf.abs().amax(dim=(1, 2, 3), keepdim=True)
+            x_scale = torch.clamp(x_amax, min=1e-12) / 127.0
+        x_q = torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8)
+        return x_q, x_scale
+
+    @staticmethod
+    def tap_operand(x_q: torch.Tensor) -> torch.Tensor:
+        """x_q (B, H, W, C) int8 -> (B * H * W, 9 * C) int8: the 3x3 windows
+        of the zero-padded ``x_q`` in tap order (dy, dx, c).  The windows are
+        a strided view that one copy makes contiguous; the copy moves a
+        pixel's C bytes as the widest integers that divide them, not byte
+        by byte.  (``F.unfold`` has no int8 on the card.)"""
+        B, H, W, C = x_q.shape
+        word = next(dt for dt, n in ((torch.int64, 8), (torch.int32, 4),
+                                     (torch.int16, 2), (torch.int8, 1))
+                    if C % n == 0)
+        xp = F.pad(x_q.contiguous().view(word), (0, 0, 1, 1, 1, 1))
+        taps = xp.unfold(1, 3, 1).unfold(2, 3, 1).permute(0, 1, 2, 4, 5, 3)
+        return taps.reshape(B * H * W, -1).view(torch.int8)
+
+    def int32_conv(self, x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+        """x_q (B, H, W, C) int8, w_q (9 * C, O) int8 -> (B, H, W, O) int32."""
+        y = matmul_int8(self.tap_operand(x_q), w_q)
+        return y.view(*x_q.shape[:3], -1)
+
+    def dequantize(self, y: torch.Tensor, x_scale: torch.Tensor,
+                   w_scale: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """int32 sums (B, H, W, O) -> NCHW output in the working dtype and
+        in the memory format of ``like``."""
+        out = y.float() * (x_scale * w_scale) + self.bias.detach().float()
+        out = out.to(_compute_dtype(like.device.type))
+        return _in_format_of(out.permute(0, 3, 1, 2), like)
+
+    def forward_int8(self, x: torch.Tensor) -> torch.Tensor:
+        w_q, w_scale = self.quantized_weight()
+        x_q, x_scale = self.quantized_input(x)
+        return self.dequantize(self.int32_conv(x_q, w_q), x_scale, w_scale, x)
+
+    def commit_calibration(self) -> None:
+        """Merge the maximum the last calibrating pass saw, if it reached
+        this layer, into ``act_amax``."""
+        if self._seen_amax is not None:
+            self.act_amax = torch.maximum(self.act_amax,
+                                          self._seen_amax.to(self.act_amax))
+            self.calibrated = True
+            self._seen_amax = None
+
+
 class ConvBlock(nn.Module):
-    """[conv3x3 -> act -> norm] x 2."""
+    """[conv3x3 -> act -> norm] x 2.  With ``quantize``, in eval mode, each
+    convolution that ``_quantize_this`` picks for the tensor it is given
+    takes its int8 path; every other case is the plain ``nn.Conv2d``."""
 
     def __init__(self, ch_in: int, ch_out: int, act_fun: str = "relu",
-                 normalization: str = "bn"):
+                 normalization: str = "bn", quantize: bool = False):
         super().__init__()
+        self.quantize = quantize
         self.conv = nn.Sequential(
-            nn.Conv2d(ch_in, ch_out, 3, padding=1),
+            QuantConv(ch_in, ch_out),
             make_act(act_fun), make_norm(normalization, ch_out),
-            nn.Conv2d(ch_out, ch_out, 3, padding=1),
+            QuantConv(ch_out, ch_out),
             make_act(act_fun), make_norm(normalization, ch_out))
 
     def forward(self, x):
-        return self.conv(x)
+        if not self.quantize or self.training:
+            return self.conv(x)
+        for layer in self.conv:
+            if isinstance(layer, QuantConv) and _quantize_this(
+                    x.shape[2], x.shape[3], layer.in_channels,
+                    layer.out_channels):
+                x = layer.forward_int8(x)
+            else:
+                x = layer(x)
+        return x
 
 
 class ConvPool(nn.Module):
@@ -84,12 +225,39 @@ class ConvPool(nn.Module):
         return self.conv_pool(x)
 
 
-class TranspConvBlock(nn.Module):
-    """Upsample: transposed conv 2x2 stride 2 -> norm."""
+class _MatmulUp(nn.ConvTranspose2d):
+    """2x2 stride-2 transposed convolution as one matrix product and a
+    depth-to-space.  Kernel equals stride, so no taps overlap and
+    ``out[b, f, 2y + i, 2x + j] = sum_c x[b, c, y, x] * W[c, f, i, j] +
+    bias[f]`` is a linear map per pixel: (B * H * W, C) x (C, 4F).  The
+    parameters are ``nn.ConvTranspose2d``'s."""
 
-    def __init__(self, ch_in: int, ch_out: int, normalization: str = "bn"):
+    def __init__(self, ch_in: int, ch_out: int):
+        super().__init__(ch_in, ch_out, 2, stride=2)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        Fo = self.out_channels
+        w = self.weight.permute(0, 2, 3, 1).reshape(C, 4 * Fo)  # (c, i j f)
+        z = torch.matmul(x.permute(0, 2, 3, 1), w)
+        z = z.view(B, H, W, 2, 2, Fo).permute(0, 1, 3, 2, 4, 5)
+        z = z.reshape(B, 2 * H, 2 * W, Fo) + self.bias.to(z.dtype)
+        return _in_format_of(z.permute(0, 3, 1, 2), x)
+
+
+class TranspConvBlock(nn.Module):
+    """Upsample: transposed conv 2x2 stride 2 -> norm.  ``up_impl``: 'conv'
+    is ``nn.ConvTranspose2d``, 'matmul' the equivalent matrix product
+    (``_MatmulUp``, same parameters)."""
+
+    def __init__(self, ch_in: int, ch_out: int, normalization: str = "bn",
+                 up_impl: str = "conv"):
         super().__init__()
-        self.up = nn.Sequential(nn.ConvTranspose2d(ch_in, ch_out, 2, stride=2))
+        if up_impl not in ("conv", "matmul"):
+            raise ValueError(f"Unsupported up_impl: {up_impl}")
+        self.up = nn.Sequential(
+            _MatmulUp(ch_in, ch_out) if up_impl == "matmul"
+            else nn.ConvTranspose2d(ch_in, ch_out, 2, stride=2))
         self.norm = make_norm(normalization, ch_out)
 
     def forward(self, x):

@@ -1,4 +1,4 @@
-"""Checkpoint loading: the JSON sidecar plus the flax ``.ckpt``.
+"""Checkpoint loading and writing: the JSON sidecar plus the flax ``.ckpt``.
 
 A ``.ckpt`` is flax's msgpack serialization of the variable tree
 (``flax.serialization.to_bytes``).  Neither flax nor msgpack is needed here:
@@ -7,11 +7,14 @@ ints, floats, bin, and the ext types 1 (ndarray) and 3 (numpy scalar), each
 a nested msgpack of ``(shape, dtype name, row-major bytes)``.  Flax splits
 arrays above 2**30 bytes into ``__msgpack_chunked_array__`` maps; the
 largest DUNet kernel (3*3*1024*1024 f32, ~38 MB) stays far below that, so
-chunked arrays are refused rather than supported.
+chunked arrays are refused rather than supported.  ``write_msgpack`` encodes
+the same subset, and ``save_model`` writes a ``.ckpt`` and sidecar that this
+module and the JAX package both load.
 """
 
 from __future__ import annotations
 
+import json
 import struct
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple, Union
@@ -24,7 +27,10 @@ from microbeseg_torch.config import (
     read_sidecar,
     train_config_from_sidecar,
 )
-from microbeseg_torch.models.convert import state_dict_from_variables
+from microbeseg_torch.models.convert import (
+    state_dict_from_variables,
+    variables_from_state_dict,
+)
 from microbeseg_torch.models.unet import UNet, build_unet
 from microbeseg_torch.utils.device import resolve_device
 
@@ -133,6 +139,75 @@ def read_msgpack(data: bytes) -> Any:
     if reader.pos != len(reader.data):
         raise ValueError("trailing bytes after msgpack object")
     return out
+
+
+def _sized(n: int, small: int, small_base: int, codes) -> bytes:
+    """A msgpack length header: the one-byte form below ``small`` (where
+    there is one), else the first of (8-, 16-, 32-bit) ``codes`` that fits."""
+    if n < small:
+        return bytes([small_base | n])
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"),
+                                (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def write_msgpack(obj: Any) -> bytes:
+    """Encode nested dicts, lists, strings, bytes, bools, None, ints, floats
+    and numpy arrays as flax's msgpack (arrays as ext type 1)."""
+    if obj is None:
+        return b"\xc0"
+    if isinstance(obj, bool):
+        return b"\xc3" if obj else b"\xc2"
+    if isinstance(obj, int):
+        if 0 <= obj < 1 << 64:
+            return (bytes([obj]) if obj < 128
+                    else b"\xcf" + struct.pack(">Q", obj))
+        return b"\xd3" + struct.pack(">q", obj)
+    if isinstance(obj, float):
+        return b"\xcb" + struct.pack(">d", obj)
+    if isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        return _sized(len(raw), 32, 0xA0, (0xD9, 0xDA, 0xDB)) + raw
+    if isinstance(obj, (bytes, bytearray, memoryview)):
+        return _sized(len(obj), 0, 0, (0xC4, 0xC5, 0xC6)) + bytes(obj)
+    if isinstance(obj, (list, tuple)):
+        return (_sized(len(obj), 16, 0x90, (None, 0xDC, 0xDD))
+                + b"".join(write_msgpack(o) for o in obj))
+    if isinstance(obj, dict):
+        return (_sized(len(obj), 16, 0x80, (None, 0xDE, 0xDF))
+                + b"".join(write_msgpack(k) + write_msgpack(v)
+                           for k, v in obj.items()))
+    if isinstance(obj, (np.ndarray, np.generic)):
+        code = _EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR
+        arr = np.asarray(obj)
+        payload = write_msgpack((list(arr.shape), arr.dtype.name,
+                                 arr.tobytes("C")))
+        return (_sized(len(payload), 0, 0, (0xC7, 0xC8, 0xC9))
+                + struct.pack(">b", code) + payload)
+    raise TypeError(f"cannot encode {type(obj).__name__} as msgpack")
+
+
+def save_model(model: torch.nn.Module, cfg: TrainConfig,
+               path_models: Union[str, Path]) -> Path:
+    """Write ``<run_name>.ckpt`` (the flax variable tree of ``model``) and
+    its JSON sidecar under ``path_models``; returns the ``.ckpt`` path."""
+    path_models = Path(path_models)
+    path_models.mkdir(parents=True, exist_ok=True)
+    ckpt = path_models / f"{cfg.run_name}{CKPT_SUFFIX}"
+    ckpt.write_bytes(write_msgpack(
+        variables_from_state_dict(model.state_dict())))
+    sidecar = {
+        "architecture": list(cfg.model.architecture),
+        "batch_size": cfg.batch_size, "label_type": cfg.label_type,
+        "loss": cfg.loss, "optimizer": cfg.optimizer,
+        "run_name": cfg.run_name, "max_epochs": cfg.max_epochs,
+        "framework": "microbeseg_torch",
+        "compute_dtype": cfg.compute_dtype, "seed": cfg.seed}
+    (path_models / f"{cfg.run_name}.json").write_text(
+        json.dumps(sidecar, ensure_ascii=False, indent=2), encoding="utf-8")
+    return ckpt
 
 
 def load_variables(path: Union[str, Path]) -> Dict[str, Any]:

@@ -36,11 +36,13 @@ def _level_features(filters: Tuple[int, int]) -> List[int]:
     return feats
 
 
-def _decoder(feats: List[int], ch_out: int, act_fun: str,
-             normalization: str) -> Tuple[nn.ModuleList, nn.ModuleList]:
-    ups = nn.ModuleList([TranspConvBlock(f, f // 2, normalization)
+def _decoder(feats: List[int], ch_out: int, act_fun: str, normalization: str,
+             up_impl: str, quantize: bool
+             ) -> Tuple[nn.ModuleList, nn.ModuleList]:
+    ups = nn.ModuleList([TranspConvBlock(f, f // 2, normalization, up_impl)
                          for f in reversed(feats[1:])])
-    convs = nn.ModuleList([ConvBlock(f, f // 2, act_fun, normalization)
+    convs = nn.ModuleList([ConvBlock(f, f // 2, act_fun, normalization,
+                                     quantize)
                            for f in reversed(feats[1:])])
     convs.append(nn.Conv2d(feats[0], ch_out, 1))
     return ups, convs
@@ -52,21 +54,24 @@ class UNet(nn.Module):
     def __init__(self, ch_in: int = 1, ch_out: int = 3,
                  pool_method: str = "conv", act_fun: str = "relu",
                  normalization: str = "bn",
-                 filters: Tuple[int, int] = (64, 1024)):
+                 filters: Tuple[int, int] = (64, 1024),
+                 up_impl: str = "conv", quantize: bool = False):
         super().__init__()
         feats = _level_features(filters)
         self.pool_method = pool_method
         self.encoderConv = nn.ModuleList(
             [ConvBlock(ch_in if i == 0 else feats[i - 1], f, act_fun,
-                       normalization) for i, f in enumerate(feats)])
+                       normalization, quantize)
+             for i, f in enumerate(feats)])
         if pool_method == "conv":
             self.pooling = nn.ModuleList(
                 [ConvPool(f, act_fun, normalization) for f in feats[:-1]])
-        self._init_decoders(feats, ch_out, act_fun, normalization)
+        self._init_decoders(feats, ch_out, act_fun, normalization, up_impl,
+                            quantize)
 
-    def _init_decoders(self, feats, ch_out, act_fun, normalization):
-        self.decoderUpconv, self.decoderConv = _decoder(
-            feats, ch_out, act_fun, normalization)
+    def _init_decoders(self, feats, ch_out, *block_args):
+        self.decoderUpconv, self.decoderConv = _decoder(feats, ch_out,
+                                                        *block_args)
 
     def _encode(self, x):
         skips = []
@@ -106,15 +111,16 @@ class DUNet(UNet):
     def __init__(self, ch_in: int = 1, ch_out: int = 1,
                  pool_method: str = "conv", act_fun: str = "relu",
                  normalization: str = "bn",
-                 filters: Tuple[int, int] = (64, 1024)):
+                 filters: Tuple[int, int] = (64, 1024),
+                 up_impl: str = "conv", quantize: bool = False):
         super().__init__(ch_in, ch_out, pool_method, act_fun, normalization,
-                         filters)
+                         filters, up_impl, quantize)
 
-    def _init_decoders(self, feats, ch_out, act_fun, normalization):
-        self.decoder1Upconv, self.decoder1Conv = _decoder(
-            feats, ch_out, act_fun, normalization)
-        self.decoder2Upconv, self.decoder2Conv = _decoder(
-            feats, 1, act_fun, normalization)
+    def _init_decoders(self, feats, ch_out, *block_args):
+        self.decoder1Upconv, self.decoder1Conv = _decoder(feats, ch_out,
+                                                          *block_args)
+        self.decoder2Upconv, self.decoder2Conv = _decoder(feats, 1,
+                                                          *block_args)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x, skips = self._encode(self._nhwc_in(x))
@@ -124,9 +130,25 @@ class DUNet(UNet):
         return self._nhwc_out(border), self._nhwc_out(cell)
 
 
-def build_unet(cfg: ModelConfig) -> UNet:
-    """Model factory: DUNet for unet_type 'DU', UNet for 'U'."""
+def set_quantize(model: nn.Module, quantize: bool = True) -> nn.Module:
+    """Switch the int8 path of every ``ConvBlock`` of ``model`` on or off,
+    in place; the parameters are the same either way."""
+    for m in model.modules():
+        if isinstance(m, ConvBlock):
+            m.quantize = quantize
+    return model
+
+
+def build_unet(cfg: ModelConfig, up_impl: str = "conv",
+               quantize: bool = False) -> UNet:
+    """Model factory: DUNet for unet_type 'DU', UNet for 'U'.
+
+    ``up_impl``: 'conv' | 'matmul', the implementation of the 2x2 stride-2
+    upsampling (same parameters; see ``blocks._MatmulUp``).  ``quantize``:
+    int8 inference on the large-spatial 3x3 convolutions (same parameters,
+    eval mode only; see ``blocks.QuantConv``)."""
     cls = DUNet if cfg.unet_type == "DU" else UNet
     return cls(ch_in=cfg.ch_in, ch_out=cfg.ch_out,
                pool_method=cfg.pool_method, act_fun=cfg.act_fun,
-               normalization=cfg.normalization, filters=tuple(cfg.filters))
+               normalization=cfg.normalization, filters=tuple(cfg.filters),
+               up_impl=up_impl, quantize=quantize)

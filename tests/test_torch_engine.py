@@ -311,12 +311,41 @@ def test_engine_tta_and_ensemble(checkpoint):
 
 
 def test_engine_unported_options_raise(checkpoint):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine.from_checkpoint(
-            checkpoint, cfg=InferConfig(quantize=True), device="cpu")
+    """No InferConfig option is refused any more: each builds an engine."""
     for cfg in (InferConfig(scale_factor=0.5), InferConfig(apply_clahe=True),
-                InferConfig(use_tiling=True)):
+                InferConfig(use_tiling=True), InferConfig(quantize=True)):
         InferenceEngine.from_checkpoint(checkpoint, cfg=cfg, device="cpu")
+
+
+def test_quantized_engine_matches_jax(checkpoint):
+    """``quantize=True`` on both engines from one checkpoint, on 256^2 blob
+    frames (the size from which layers take the int8 path): both calibrate
+    on the first 2 frames, and the masks reach per-frame IoU >= 0.99."""
+    rng = np.random.default_rng(7)
+    frames = np.stack([blob_sample(rng, 256, n_blobs=40)[0]
+                       for _ in range(3)])
+    with jax.default_matmul_precision("highest"):
+        jeng, eng = _both_engines(checkpoint, quantize=True, batch_size=2)
+        _, cell = jeng.predict_raw(frames)
+        th_cell, th_seed = _thresholds(cell)
+        ref = jeng.segment(frames, th_cell=th_cell, th_seed=th_seed)
+    assert jeng._quant_calibrated and "quant" in jeng.variables
+    ours = eng.segment(frames, th_cell=th_cell, th_seed=th_seed)
+    assert eng._quant_shapes == {(256, 256)} and eng.oom_count == 0
+    _assert_masks_agree(ref, ours)
+    # the int8 layers are the ones JAX calibrated, with its maxima to 1e-3
+    from microbeseg_torch.models.convert import act_amax_from_model
+    got = act_amax_from_model(eng.models[0])
+    want = jax.tree_util.tree_map(np.asarray, dict(jeng.variables["quant"]))
+    assert (jax.tree_util.tree_structure(got)
+            == jax.tree_util.tree_structure(want))
+    for a, b in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(want)):
+        np.testing.assert_allclose(a, b, rtol=1e-3)
+    # int8 really ran: the predictions differ from the float32 engine's
+    plain = InferenceEngine.from_checkpoint(checkpoint, device="cpu")
+    assert np.abs(plain.predict_raw(frames[:1])[1]
+                  - eng.predict_raw(frames[:1])[1]).max() > 1e-4
 
 
 def test_no_silent_cpu(checkpoint, monkeypatch):
@@ -355,6 +384,34 @@ def test_cli_infer_local(checkpoint, tmp_path):
     assert imread(out_t / "mask_stack_channel0.tif").shape == (2, 48, 48)
 
 
+def test_cli_quantize_reaches_the_engine(checkpoint, tmp_path, monkeypatch):
+    from microbeseg_torch.cli import infer_local
+    from microbeseg_torch.utils.tiff import imread, imwrite
+
+    engines = []
+    real = infer_local.build_engine
+
+    def spy(models, cfg, device=None):
+        engines.append(real(models, cfg, device=device))
+        return engines[-1]
+
+    monkeypatch.setattr(infer_local, "build_engine", spy)
+    imgs = tmp_path / "imgs"
+    imgs.mkdir()
+    imwrite(imgs / "a.tif", _frames(n=1, size=256)[0])
+    out = tmp_path / "out"
+    assert infer_local.main(["-i", str(imgs), "-m", str(checkpoint), "-r",
+                             str(out), "--device", "cpu",
+                             "--quantize"]) == 0
+    assert engines[0].cfg.quantize
+    assert engines[0]._quant_shapes == {(256, 256)}
+    assert imread(out / "mask_a_channel0.tif").shape == (256, 256)
+    with pytest.raises(ValueError, match="ensembles"):
+        infer_local.main(["-i", str(imgs), "-m", str(checkpoint),
+                          str(checkpoint), "-r", str(out), "--device", "cpu",
+                          "--quantize"])
+
+
 def test_port_imports_without_jax_or_the_jax_package():
     """Every module of microbeseg_torch imports in a fresh process where
     jax, flax, msgpack, triton and microbeseg_tpu cannot be imported; and no
@@ -373,8 +430,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 18
-    for mod in ("inference.tiling", "ops.resize", "ops.augment"):
+    assert int(res.stdout.strip()) >= 19
+    for mod in ("inference.tiling", "ops.resize", "ops.augment",
+                "ops.kernels.matmul"):
         assert (REPO / "microbeseg_torch" / (mod.replace(".", "/") + ".py")
                 ).is_file()
     banned = {"jax", "flax", "msgpack", "triton", "microbeseg_tpu"}

@@ -79,3 +79,52 @@ def test_frame_flood_matches_plain(dev, shape):
     torch.testing.assert_close(
         flood_or_fallback(v, markers, mask, n_levels=2, max_label=6000), got,
         rtol=0, atol=0)
+
+
+def bf16_tolerance(a, b):
+    """Bound on |kernel - plain| for the bf16 product: both round a float32
+    sum to bfloat16, so they differ by at most one bfloat16 step of the
+    result (2^-7 relative) where the two float32 sums, taken in different
+    orders, fall on either side of a rounding boundary; plus the float32
+    sums' own difference, which matters only for results near zero."""
+    K = a.shape[1]
+    atol = 1e-6 * K * float(a.abs().max()) * float(b.abs().max())
+    return 2.0 ** -7, atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (256, 64, 64), (1000, 200, 72), (130, 2304, 128), (4099, 576, 64),
+    (77, 33, 5), (512, 1152, 200), (16384, 100, 64)])
+def test_matmul_matches_plain(dev, shape):
+    """K5: int8 exactly, bf16 within one bfloat16 step, on aligned, ragged
+    and path-like shapes (K not a multiple of 16 takes the gathering
+    loads)."""
+    from microbeseg_torch.ops.kernels.matmul import (
+        matmul_bf16, matmul_bf16_plain, matmul_int8, matmul_int8_plain)
+
+    M, K, N = shape
+    rng = np.random.default_rng(M + K + N)
+    a = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8)).to(dev)
+    b = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8)).to(dev)
+    got = matmul_int8(a, b)
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    torch.testing.assert_close(got, matmul_int8_plain(a, b), rtol=0, atol=0)
+    # the extremes: every product +-127^2
+    ones = torch.full_like(a, 127)
+    torch.testing.assert_close(
+        matmul_int8(ones, -torch.full_like(b, 127)),
+        torch.full((M, N), -127 * 127 * K, dtype=torch.int32, device=dev),
+        rtol=0, atol=0)
+    # a row slice of A is not 16-byte aligned when K is odd
+    torch.testing.assert_close(matmul_int8(a[1:], b),
+                               matmul_int8_plain(a[1:], b), rtol=0, atol=0)
+
+    af = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    bf = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
+    af, bf = af.to(dev, torch.bfloat16), bf.to(dev, torch.bfloat16)
+    got = matmul_bf16(af, bf)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    rtol, atol = bf16_tolerance(af, bf)
+    torch.testing.assert_close(got.float(), matmul_bf16_plain(af, bf).float(),
+                               rtol=rtol, atol=atol)

@@ -146,3 +146,69 @@ def test_msgpack_reader_matches_msgpack():
     assert read_msgpack(msgpack.packb(1.5, use_single_float=True)) == 1.5
     with pytest.raises(ValueError, match="chunked"):
         read_msgpack(msgpack.packb({"__msgpack_chunked_array__": True}))
+
+
+@pytest.mark.parametrize("arch", [
+    dict(unet_type="DU", normalization="bn", filters=(8, 32)),
+    dict(unet_type="DU", normalization="gn", act_fun="mish",
+         pool_method="max", filters=(8, 16)),
+    dict(unet_type="U", ch_out=3, normalization="in", filters=(4, 16)),
+], ids=["DU-bn", "DU-gn-max", "U-in"])
+def test_checkpoint_written_by_the_port_loads_in_jax(tmp_path, arch):
+    """``save_model`` writes the flax tree the weights came from, leaf for
+    leaf, and both packages load it."""
+    from microbeseg_tpu.models.io import load_model as jload
+    from microbeseg_torch.config import TrainConfig
+    from microbeseg_torch.models.convert import variables_from_state_dict
+    from microbeseg_torch.models.io import load_model, save_model
+
+    rng = np.random.default_rng(9)
+    jcfg = JModelConfig(**arch)
+    variables = random_variables(jbuild(jcfg, dtype=jnp.float32), rng)
+    net = build_unet(ModelConfig(**arch))
+    net.load_state_dict(state_dict_from_variables(variables))
+    back = variables_from_state_dict(net.state_dict())
+    assert (jax.tree_util.tree_structure(back)
+            == jax.tree_util.tree_structure(variables))
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(variables)):
+        np.testing.assert_array_equal(a, b)
+
+    label_type = "boundary" if arch["unet_type"] == "U" else "distance"
+    ckpt = save_model(net, TrainConfig(model=ModelConfig(**arch),
+                                       label_type=label_type,
+                                       run_name="port_w"), tmp_path)
+    assert ckpt == tmp_path / "port_w.ckpt"
+    jmodel, jvars, jtcfg = jload(tmp_path / "port_w", dtype=jnp.float32)
+    assert jtcfg.model == jcfg and jtcfg.label_type == label_type
+    for a, b in zip(jax.tree_util.tree_leaves(jvars),
+                    jax.tree_util.tree_leaves(variables)):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    again, tcfg = load_model(ckpt, device="cpu")
+    assert tcfg.model == ModelConfig(**arch)
+    for k, v in net.state_dict().items():
+        torch.testing.assert_close(again.state_dict()[k], v, rtol=0, atol=0)
+
+
+def test_write_msgpack_round_trips():
+    from microbeseg_torch.models.io import read_msgpack, write_msgpack
+
+    obj = {"a": [0, 1, 127, 128, 65536, 2**40, -1, -33, -2**40],
+           "b": [0.5, -1e300, True, False, None, "x" * 40, "y" * 300,
+                 "z" * 70000],
+           "c": {"nested": {str(i): i for i in range(20)}},
+           "d": b"\x00\x01" * 200, "e": list(range(20)),
+           "f": {"k": np.arange(24, dtype=np.float32).reshape(2, 3, 4),
+                 "s": np.float32(2.5), "big": np.zeros((300, 300), np.int8)}}
+    got = read_msgpack(write_msgpack(obj))
+    assert {k: got[k] for k in "abcde"} == {k: obj[k] for k in "abcde"}
+    np.testing.assert_array_equal(got["f"]["k"], obj["f"]["k"])
+    assert got["f"]["k"].dtype == np.float32
+    assert got["f"]["s"] == np.float32(2.5)
+    np.testing.assert_array_equal(got["f"]["big"], obj["f"]["big"])
+    with pytest.raises(TypeError, match="cannot encode"):
+        write_msgpack({"x": object()})
+    msgpack = pytest.importorskip("msgpack")
+    plain = {k: obj[k] for k in "abcde"}
+    assert msgpack.unpackb(write_msgpack(plain), raw=False,
+                           strict_map_key=False) == plain
