@@ -8,31 +8,44 @@
    source, in parallel).
 3. Holds each kernel exactly against its plain PyTorch version on the card,
    at the shapes the main paths give it, and times kernel, plain version
-   and, for K4, the one-call PyTorch gather that computes the same function,
-   with CUDA events: K1 flood, K3 connected components and K4 rank relabel
-   at 16 x 256^2 on seeded blob fields and a speckle field; K2, the frame
-   flood, with markers above 4095 on 2 x 1024^2, 1000 x 1400 and one 2048^2
-   field; K3 and K4 again on one 2048^2 field.  K5, the tensor-core matrix
-   product, at 2048^3, at every shape the int8 paths give it (M = 2^20 on
-   16 crops, 2^21 and 2^19 on 8 tiles of 512^2; K = 576, 1152 or 2304; N =
-   64 or 128) and at the ragged 1000 x 200 x 72: int8 exactly equal to its
-   plain version, bf16 within one bfloat16 step of it, each timed beside
-   ``torch._int_mm`` / ``torch.matmul``.
+   and, where one PyTorch call computes the same function, that call, with
+   CUDA events: K1 flood, K3 connected components, K4 rank relabel and
+   ``ranked_components`` (K4 for K3's ids: ranks straight from a mask, the
+   entry the main paths call) at 16 x 256^2 on seeded blob fields, a speckle
+   field, an empty and a full mask; K2, the frame flood, with markers above
+   4095 on 2 x 1024^2, 1000 x 1400 and one 2048^2 field; K3, K4 and
+   ``ranked_components`` again on one 2048^2 field and a 48 x 816 strip.
+   K4's yardstick is the same function in PyTorch calls (root ranks, then a
+   gather), with the bare gather beside it; ``ranked_components`` is timed in
+   turns with K3 alone and with K3 followed by that library route.  K5, the
+   tensor-core matrix product, at 2048^3, at every shape the 9-tap operand
+   of the int8 paths has (M = 2^20 on 16 crops, 2^21 and 2^19 on 8 tiles of
+   512^2; K = 576, 1152 or 2304; N = 64 or 128) and at the ragged 1000 x
+   200 x 72: int8 exactly equal to its plain version, bf16 within one
+   bfloat16 step of it, on both of its kernels (``wgmma`` fed by TMA for
+   16-byte-aligned rows, ``mma.sync`` for the rest), each timed beside
+   ``torch._int_mm`` / ``torch.matmul``.  K5's convolution entry,
+   ``conv3x3_int8``, exactly equal to the 9-tap operand, the plain product
+   and the float32 dequantise in turn, at every layer shape of the int8
+   paths, timed beside ``F.conv2d`` in bfloat16.
 4. Crop path: builds the full-width distance DUNet (filters 64 -> 1024, bn,
    relu, conv pooling) with numpy-seeded weights and runs
    ``InferenceEngine.segment`` on 48 uint16 frames of 256^2 (3 batches of
    16), with every launch counter set to 0 just before and read just after.
-   Checks that K1, K3 and K4 launched, that no out-of-memory fallback was
-   taken, that the masks hold instances, that the plain post-processing on
-   the card gives the same masks from the same predictions, and that the
+   Checks that K1 and ``ranked_components`` launched and the general K4
+   did not, that no out-of-memory fallback was taken, that the masks hold
+   instances, that the plain post-processing on the card gives the same
+   masks from the same predictions, that post-processing with K3 followed by
+   the general K4 as its labelling function gives them too (counters set to
+   0 before, read after), and that the
    bf16 forward on the card agrees with a float32 CPU forward of the same
    weights on a small input.  Times ``segment`` (crops/s) and its forward
    and post-processing parts.
 5. Large-frame path: the same model through ``segment`` with
    ``InferConfig(use_tiling=True)`` (tile 512, overlap 64: 25 tiles a
    frame, 8 a forward call) on 3 uint16 frames of 2048^2 with ~900 blobs
-   each, counters set to 0 before and read after.  Checks that K2, K3 and
-   K4 launched, no out-of-memory fallback, instances and ids above 255,
+   each, counters set to 0 before and read after.  Checks that K2 and
+   ``ranked_components`` launched, no out-of-memory fallback, instances and ids above 255,
    and that kernel post-processing equals plain post-processing on one
    whole stitched 2048^2 frame.  Times ``segment`` (frames/s, Mpx/s) and its
    forward, stitching and post-processing parts.
@@ -45,21 +58,31 @@
 
 7. int8 path: the same model and the same 48 crops through ``segment`` with
    ``InferConfig(quantize=True)``.  Checks that calibration ran once (5
-   layers with a positive maximum), that K5 launched 5 times per batch of 16
-   (the calibration pass's launches counted apart), that the predictions
-   equal, bit for bit, those of the same engine on the plain int8 product,
-   and that a second ``segment`` call returns the same masks.  Times
-   ``segment`` and the forward beside the bf16 engine's, and reports how far
-   the int8 fields and masks are from the bf16 ones (numbers, not gates: the
-   weights are random).  Then one 2048^2 frame, tiled, with
+   layers with a positive maximum), that ``conv3x3_int8`` launched 5 times
+   per batch of 16 (the calibration pass's launches counted apart) and the
+   9-tap operand's product never, that the predictions equal, bit for bit,
+   those of the same engine on the plain version, and that a second
+   ``segment`` call returns the same masks.  Times one int8 layer stage by
+   stage, ``segment`` and the forward beside the bf16 engine's, and reports
+   how far the int8 fields and masks are from the bf16 ones (numbers, not
+   gates: the weights are random).  Then one 2048^2 frame, tiled, with
    ``quantize=True``: tile calibration, 11 K5 launches per tile call, and
-   stitched predictions equal to those on the plain int8 product.
+   stitched predictions equal to those on the plain version.  Then a narrow
+   model (filters 24 -> 384) whose int8 layers no 64 channels divide: 5
+   ``matmul_int8`` launches per batch through the 9-tap operand, predictions
+   equal to the plain version's.
 8. The inference CLI: ``microbeseg_torch.cli.infer_local --quantize`` on a
    folder of two TIFFs, from a checkpoint of the seeded model that
    ``save_model`` wrote; its masks equal the engine's on the same files.
 
-The next-to-last line of stdout is a JSON object with one entry per kernel,
-the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
+The next-to-last line of stdout is a JSON object with one entry per kernel.
+Its ``launches`` are those of the full-width paths' own runs (steps 4, 5, 7
+without the narrow model, and 8); what the two side runs launched (K3 and the
+general K4 as the labelling function in step 4, the narrow model in step 7)
+stands apart as ``side_run_launches``.  Each wrapper's host enqueue time and
+the device time of every kernel it launches (``torch.profiler``) stand under
+``host_ms`` and ``device_us``.  The last line is ``{"ok": true, "device":
+{...}}``.  Any failure raises and
 exits non-zero before the result lines.  Without CUDA it exits 1 at once.
 """
 
@@ -96,6 +119,13 @@ MATMUL_SHAPES = ((2048, 2048, 2048), MATMUL_CROP_SHAPE,
                  (8 * 512 * 512, 576, 64), (8 * 512 * 512, 1152, 64),
                  (8 * 256 * 256, 576, 128), (8 * 256 * 256, 1152, 128),
                  (8 * 256 * 256, 2304, 128), (1000, 200, 72))
+# the convolution entry's shapes (samples, H, W, C_in, C_out): the int8
+# layers on 16 crops of 256^2 and on 8 tiles of 512^2 (levels 0 and 1), and
+# a small one whose width no tile of 128 pixels divides
+CONV_SHAPES = ((B, SIDE, SIDE, 64, 64), (B, SIDE, SIDE, 128, 64),
+               (8, 512, 512, 64, 64), (8, 512, 512, 128, 64),
+               (8, 256, 256, 128, 128), (8, 256, 256, 256, 128),
+               (2, 40, 200, 192, 72))
 
 
 def card_line() -> str:
@@ -116,6 +146,55 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_and_device(fn, reps: int = 50) -> dict:
+    """Where one wrapper call's time goes: ``host_ms``, the host time to
+    enqueue it (a loop of calls with no synchronisation), and ``device_us``,
+    the device time of every kernel it launches, by name, from
+    ``torch.profiler``.  A wrapper whose event time equals its enqueue time
+    is bound by the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return dict(host_ms=host_ms, device_us={
+        ev.key[:80]: ev.device_time_total / ev.count
+        for ev in prof.key_averages()
+        if ev.device_time_total > 0 and not ev.key.startswith("aten::")})
+
+
+def stream_handle_us(dev, reps: int = 20000) -> dict:
+    """Host microseconds to fetch the current stream's handle for a launch:
+    the raw call that ``_build.stream_ptr`` makes, beside the public route
+    through a ``torch.cuda.Stream`` object (same handle)."""
+    from microbeseg_torch.kernels import _build
+
+    probe = torch.empty((1,), device=dev)
+    routes = dict(
+        raw=lambda: _build.stream_ptr(probe),
+        stream_object=lambda: torch.cuda.current_stream(
+            probe.device).cuda_stream)
+    if routes["raw"]() != routes["stream_object"]():
+        raise AssertionError("stream_ptr is not the current stream's handle")
+    out = {}
+    for name, fn in routes.items():
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+    return out
 
 
 def blob_fields(rng, n, size, n_blobs):
@@ -263,18 +342,33 @@ def check_kernels(dev, report):
     k4_ms = cuda_ms(lambda: cc.sequentialize_components(labels), 50)
     k4_plain = cuda_ms(lambda: cc.sequentialize_components_plain(labels), 3,
                        warmup=1)
-    # the same function as one PyTorch call on CC ids: gather the root ranks
-    table = torch.cat([torch.zeros((B, 1), dtype=torch.int32, device=dev),
-                       cc._root_ranks(labels).view(B, -1)], dim=1)
-    idx = labels.view(B, -1).to(torch.int64)
-    exact("K4 gather", torch.gather(table, 1, idx).view(B, SIDE, SIDE),
-          ranks)
-    lib_ms = cuda_ms(lambda: torch.gather(table, 1, idx), 50)
+    # the same function in PyTorch calls on CC ids: the root ranks (compare,
+    # cumsum, where), then one gather of them at the ids; the bare gather is
+    # timed beside it
+    exact("K4 library route", library_ranks(labels), ranks)
+    table, idx = rank_table(labels)
     results["sequentialize_components"] = dict(
         source="microbeseg_torch/csrc/cc.cu",
         replaces="microbeseg_tpu/ops/pallas/propagate.py:161",
-        max_abs_err=0, ms=k4_ms, plain_ms=k4_plain, library_ms=lib_ms,
+        max_abs_err=0, ms=k4_ms, plain_ms=k4_plain,
+        library_ms=cuda_ms(lambda: library_ranks(labels), 50),
+        gather_ms=cuda_ms(lambda: torch.gather(table, 1, idx), 50),
         bytes=px * (4 + 4), ops=px * 8)
+
+    # K4 for K3's ids, ranks straight from the mask: the main paths' entry
+    for conn in (1, 2):
+        for field in (seeds_bin, speckle, torch.zeros_like(speckle),
+                      torch.ones_like(speckle)):
+            exact("ranked_components", cc.ranked_components(field, conn),
+                  cc.ranked_components_plain(field, conn))
+    exact("ranked_components", cc.ranked_components(seeds_bin), ranks)
+    results["ranked_components"] = dict(
+        source="microbeseg_torch/csrc/cc.cu",
+        replaces="microbeseg_tpu/ops/pallas/propagate.py:161",
+        max_abs_err=0, library_ms=None,
+        bytes=px * (1 + 4), ops=px * 8,
+        **ranked_times(seeds_bin, labels, 50, 3),
+        **host_and_device(lambda: cc.ranked_components(seeds_bin)))
 
     # K1 flood: 12-bit keys as on the main path, and 24-bit keys
     mask = cell > 0.1
@@ -323,18 +417,69 @@ def check_kernels(dev, report):
     for name, r in results.items():
         print(f"{name}: {r['ms']:.5f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
+        if "device_us" in r:
+            print(f"{name}: host enqueue {r['host_ms']:.5f} ms a call; device "
+                  f"us per kernel {r['device_us']}", flush=True)
         if "ms_2048" in r:
             print(f"{name} at {BIG}^2: {r['ms_2048']:.5f} ms, plain "
                   f"{r['plain_ms_2048']:.4f} ms, bound "
                   f"{r['bound_ms_2048']:.6f} ms", flush=True)
         for shape, by_type in r.get("shapes", {}).items():
+            if name == "conv3x3_int8":
+                by_type = {"conv3x3": by_type}
             for kind, t in by_type.items():
                 lib = t["library_ms"]
-                print(f"matmul_{kind} {shape}: {t['ms']:.5f} ms, plain "
+                old = ("" if "mma_sync_ms" not in t or t["route"] == "mma_sync"
+                       else f" (mma.sync kernel {t['mma_sync_ms']:.5f})")
+                label = kind if name == "conv3x3_int8" else "matmul_" + kind
+                print(f"{label} {shape}: {t['ms']:.5f} ms{old}, plain "
                       f"{t['plain_ms']:.4f} ms, library "
                       f"{'none' if lib is None else format(lib, '.5f')} ms, "
                       f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}), max "
                       f"abs err {t['max_abs_err']:.4g}", flush=True)
+                if "device_us" in t and name != "conv3x3_int8":
+                    print(f"{label} {shape}: host enqueue {t['host_ms']:.5f} "
+                          f"ms a call; device us per kernel {t['device_us']}"
+                          + (f"; library host {t['library_host_ms']:.5f} ms, "
+                             f"device us {t['library_device_us']}"
+                             if "library_host_ms" in t else ""), flush=True)
+
+
+def rank_table(labels):
+    """(table, idx): the root ranks of CC ids ``labels`` (B, H, W) behind a
+    leading 0, and the ids as gather indices."""
+    from microbeseg_torch.ops import cc
+
+    n = labels.shape[0]
+    table = torch.cat([torch.zeros((n, 1), dtype=torch.int32,
+                                   device=labels.device),
+                       cc._root_ranks(labels).view(n, -1)], dim=1)
+    return table, labels.view(n, -1).to(torch.int64)
+
+
+def library_ranks(labels):
+    """K4 on CC ids in plain PyTorch calls: root ranks, then one gather."""
+    table, idx = rank_table(labels)
+    return torch.gather(table, 1, idx).view(labels.shape)
+
+
+def ranked_times(mask, labels, reps, plain_reps):
+    """``ranked_components`` on ``mask`` in turns with K3 alone and with K3
+    followed by the library route for the ranks (``labels`` = K3's ids)."""
+    from microbeseg_torch.ops import cc
+
+    ms, k3, lib = [], [], []
+    for _ in range(2):
+        ms.append(cuda_ms(lambda: cc.ranked_components(mask), reps))
+        k3.append(cuda_ms(lambda: cc.connected_components(mask), reps))
+        lib.append(cuda_ms(
+            lambda: library_ranks(cc.connected_components(mask)), reps))
+    return dict(
+        ms=min(ms), k3_alone_ms=min(k3), k3_then_library_ranks_ms=min(lib),
+        k3_then_k4_ms=cuda_ms(lambda: cc.sequentialize_components(
+            cc.connected_components(mask)), reps),
+        plain_ms=cuda_ms(lambda: cc.ranked_components_plain(mask),
+                         plain_reps, warmup=1))
 
 
 def check_big_kernels(dev, rng, results, exact):
@@ -346,8 +491,9 @@ def check_big_kernels(dev, rng, results, exact):
     def fields(n, shape, n_blobs):
         cell = torch.from_numpy(big_blob_fields(rng, n, shape, n_blobs))
         cell = gaussian_filter(cell.to(dev), 0.5)
-        ranks = cc.sequentialize_components(
-            cc.connected_components(cell > 0.6))
+        ranks = cc.ranked_components(cell > 0.6)
+        exact("ranked_components", ranks,
+              cc.ranked_components_plain(cell > 0.6))
         # ids above 4095, so the 24-bit label field is exercised
         return cell, torch.where(ranks > 0, ranks + 5000, 0), cell > 0.1
 
@@ -394,11 +540,17 @@ def check_big_kernels(dev, rng, results, exact):
     for lab in (labels, cc.connected_components(speckle & mask, 1)):
         exact("K4 2048", cc.sequentialize_components(lab),
               cc.sequentialize_components_plain(lab))
-    table = torch.cat([torch.zeros((1, 1), dtype=torch.int32, device=dev),
-                       cc._root_ranks(labels).view(1, -1)], dim=1)
-    idx = labels.view(1, -1).to(torch.int64)
-    exact("K4 gather 2048", torch.gather(table, 1, idx).view(1, BIG, BIG),
+    exact("K4 library route 2048", library_ranks(labels),
           cc.sequentialize_components(labels))
+    table, idx = rank_table(labels)
+    for conn in (1, 2):
+        for field in (seeds_bin, speckle & mask):
+            exact("ranked_components 2048", cc.ranked_components(field, conn),
+                  cc.ranked_components_plain(field, conn))
+    # a strip: one block row of counts per line does not divide the width
+    strip = speckle[:, :48, :816].contiguous()
+    exact("ranked_components strip", cc.ranked_components(strip),
+          cc.ranked_components_plain(strip))
     results["connected_components"].update(
         ms_2048=cuda_ms(lambda: cc.connected_components(seeds_bin), 20),
         plain_ms_2048=cuda_ms(
@@ -408,8 +560,13 @@ def check_big_kernels(dev, rng, results, exact):
         ms_2048=cuda_ms(lambda: cc.sequentialize_components(labels), 20),
         plain_ms_2048=cuda_ms(
             lambda: cc.sequentialize_components_plain(labels), 1, warmup=1),
-        library_ms_2048=cuda_ms(lambda: torch.gather(table, 1, idx), 20),
+        library_ms_2048=cuda_ms(lambda: library_ranks(labels), 20),
+        gather_ms_2048=cuda_ms(lambda: torch.gather(table, 1, idx), 20),
         bytes_2048=px * (4 + 4), ops_2048=px * 8)
+    results["ranked_components"].update(
+        bytes_2048=px * (1 + 4), ops_2048=px * 8,
+        **{k + "_2048": v
+           for k, v in ranked_times(seeds_bin, labels, 20, 1).items()})
 
 
 def bound(n_bytes, n_ops, ops_per_s):
@@ -419,13 +576,28 @@ def bound(n_bytes, n_ops, ops_per_s):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def route_times(mm, name, a, b, out_dtype, reps):
+    """{route: ms} of one K5 entry on both of its kernels, in turns (wgmma,
+    mma.sync, mma.sync, wgmma; the lower of each pair), and the route the
+    wrapper's shape rule picks.  Rows of A that are not 16-byte aligned have
+    the ``mma.sync`` kernel only."""
+    routes = ("wgmma", "mma_sync") if mm._rows_aligned(a) else ("mma_sync",)
+    times = {r: [] for r in routes}
+    for r in routes + routes[::-1]:
+        times[r].append(cuda_ms(
+            lambda: mm._launch(name, a, b, out_dtype, route=r), reps))
+    return {r + "_ms": min(t) for r, t in times.items()}, routes[0]
+
+
 def check_matmul(dev, results):
-    """K5 against its plain versions: int8 exactly equal; bf16 within one
-    bfloat16 step (2^-7 relative: both round a float32 sum to bfloat16, and
-    the two sums, taken in different orders, may fall on either side of a
-    rounding boundary) plus 1e-6 K max|a| max|b| for the float32 sums' own
-    difference near zero.  Each is timed beside the one PyTorch call that
-    computes the same product."""
+    """K5 against its plain versions, on both of its kernels (the ``wgmma``
+    one that the wrapper picks for 16-byte-aligned rows of A, and the
+    ``mma.sync`` one): int8 exactly equal; bf16 within one bfloat16 step
+    (2^-7 relative: both round a float32 sum to bfloat16, and the two sums,
+    taken in different orders, may fall on either side of a rounding
+    boundary) plus 1e-6 K max|a| max|b| for the float32 sums' own difference
+    near zero.  Each is timed beside the one PyTorch call that computes the
+    same product; ``ms`` is the wrapper's own route."""
     from microbeseg_torch.ops.kernels import matmul as mm
 
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -437,43 +609,64 @@ def check_matmul(dev, results):
         b = torch.randint(-127, 128, (K, N), dtype=torch.int8, device=dev,
                           generator=gen)
         got = mm.matmul_int8(a, b)
-        if not torch.equal(got, mm.matmul_int8_plain(a, b)):
+        ref = mm.matmul_int8_plain(a, b)
+        if not torch.equal(got, ref):
             raise AssertionError(f"K5 int8 differs from plain at {M}x{K}x{N}")
+        if not torch.equal(mm._launch("matmul_int8", a, b, torch.int32,
+                                      route="mma_sync"), ref):
+            raise AssertionError(f"K5 int8 (mma.sync) differs from plain at "
+                                 f"{M}x{K}x{N}")
         has_lib = K % 8 == 0 and N % 8 == 0 and M > 16  # torch._int_mm's limits
         if has_lib and not torch.equal(got, torch._int_mm(a, b)):
             raise AssertionError(f"K5 int8 differs from torch._int_mm at "
                                  f"{M}x{K}x{N}")
-        del got
+        del got, ref
+        by_route, route = route_times(mm, "matmul_int8", a, b, torch.int32,
+                                      reps)
         int8 = dict(
-            max_abs_err=0,
-            ms=cuda_ms(lambda: mm.matmul_int8(a, b), reps),
+            max_abs_err=0, route=route, ms=by_route[route + "_ms"],
+            **by_route,
             plain_ms=cuda_ms(lambda: mm.matmul_int8_plain(a, b), 2, warmup=1),
             library_ms=(cuda_ms(lambda: torch._int_mm(a, b), reps)
                         if has_lib else None),
             **bound(M * K + K * N + 4 * M * N, 2 * M * K * N, INT8_OPS_PER_S))
+        if (M, K, N) == MATMUL_SHAPES[0]:
+            int8.update(host_and_device(lambda: mm.matmul_int8(a, b)))
         del a, b
 
         a = torch.randn((M, K), dtype=torch.bfloat16, device=dev,
                         generator=gen)
         b = torch.randn((K, N), dtype=torch.bfloat16, device=dev,
                         generator=gen)
-        got = mm.matmul_bf16(a, b).float()
         ref = mm.matmul_bf16_plain(a, b).float()
         atol = 1e-6 * K * float(a.abs().max()) * float(b.abs().max())
-        err = (got - ref).abs()
-        if not bool((err <= 2.0 ** -7 * ref.abs() + atol).all()):
-            raise AssertionError(f"K5 bf16 beyond one bfloat16 step of plain "
-                                 f"at {M}x{K}x{N}: max abs err {err.max()}")
-        bf16 = dict(
-            max_abs_err=float(err.max()), rtol=2.0 ** -7, atol=atol,
-            share_differing=float((err > 0).float().mean()))
+        for route in (None, "mma_sync"):
+            got = mm._launch("matmul_bf16", a, b, torch.bfloat16,
+                             route=route).float()
+            err = (got - ref).abs()
+            if not bool((err <= 2.0 ** -7 * ref.abs() + atol).all()):
+                raise AssertionError(
+                    f"K5 bf16 (route {route or 'by shape'}) beyond one "
+                    f"bfloat16 step of plain at {M}x{K}x{N}: max abs err "
+                    f"{err.max()}")
+            if route is None:
+                bf16 = dict(
+                    max_abs_err=float(err.max()), rtol=2.0 ** -7, atol=atol,
+                    share_differing=float((err > 0).float().mean()))
         del got, ref, err
+        by_route, route = route_times(mm, "matmul_bf16", a, b,
+                                      torch.bfloat16, reps)
         bf16.update(
-            ms=cuda_ms(lambda: mm.matmul_bf16(a, b), reps),
+            route=route, ms=by_route[route + "_ms"], **by_route,
             plain_ms=cuda_ms(lambda: mm.matmul_bf16_plain(a, b), 2, warmup=1),
             library_ms=cuda_ms(lambda: torch.matmul(a, b), reps),
             **bound(2 * (M * K + K * N + M * N), 2 * M * K * N,
                     BF16_FLOPS_PER_S))
+        if (M, K, N) == MATMUL_SHAPES[0]:
+            bf16.update(host_and_device(lambda: mm.matmul_bf16(a, b)))
+            lib = host_and_device(lambda: torch.matmul(a, b))
+            bf16.update(library_host_ms=lib["host_ms"],
+                        library_device_us=lib["device_us"])
         del a, b
         shapes[f"{M}x{K}x{N}"] = dict(int8=int8, bf16=bf16)
     torch.cuda.empty_cache()
@@ -483,6 +676,69 @@ def check_matmul(dev, results):
         source="microbeseg_torch/csrc/matmul.cu",
         replaces="scripts/bench_pallas_int8_dot.py:46",
         shape=list(MATMUL_CROP_SHAPE), shapes=shapes, **crop)
+    check_conv(dev, results)
+
+
+def check_conv(dev, results):
+    """K5's convolution entry against its plain version (the 9-tap operand,
+    the float64 product, the float32 dequantise): exactly equal, bfloat16
+    and float32 results, at every layer shape the int8 paths give it (16
+    crops of 256^2; 8 tiles of 512^2 at levels 0 and 1), with scales per
+    sample and channel, and at a width that no tile divides.  The PyTorch
+    call beside it is the layer it stands for: ``F.conv2d`` in bfloat16,
+    channels-last, on activations of the same shape."""
+    import torch.nn.functional as F
+
+    from microbeseg_torch.ops.kernels import matmul as mm
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    shapes = {}
+    for n, H, W, C, O in CONV_SHAPES:
+        x_q = torch.randint(-127, 128, (n, H, W, C), dtype=torch.int8,
+                            device=dev, generator=gen)
+        w_q = torch.randint(-127, 128, (9 * C, O), dtype=torch.int8,
+                            device=dev, generator=gen)
+        scale = torch.rand((n, O), device=dev, generator=gen) * 1e-4 + 1e-6
+        bias = torch.randn((O,), device=dev, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = mm.conv3x3_int8(x_q, w_q, scale, bias, dtype)
+            if not torch.equal(got, mm.conv3x3_int8_plain(x_q, w_q, scale,
+                                                          bias, dtype)):
+                raise AssertionError(f"K5 conv3x3_int8 differs from plain at "
+                                     f"{(n, H, W, C, O)}, {dtype}")
+        del got
+        if n * H * W < 1 << 19:
+            continue   # the ragged case is checked, not timed
+        x = torch.randn((n, C, H, W), device=dev, dtype=torch.bfloat16,
+                        generator=gen).contiguous(
+                            memory_format=torch.channels_last)
+        w = torch.randn((O, C, 3, 3), device=dev, dtype=torch.bfloat16,
+                        generator=gen).contiguous(
+                            memory_format=torch.channels_last)
+        bias16 = bias.to(torch.bfloat16)
+        px = n * H * W
+        shapes[f"{n}x{H}x{W}x{C}->{O}"] = dict(
+            max_abs_err=0,
+            ms=cuda_ms(lambda: mm.conv3x3_int8(x_q, w_q, scale, bias,
+                                               torch.bfloat16), 20),
+            float32_ms=cuda_ms(lambda: mm.conv3x3_int8(
+                x_q, w_q, scale, bias, torch.float32), 20),
+            plain_ms=cuda_ms(lambda: mm.conv3x3_int8_plain(
+                x_q, w_q, scale, bias, torch.bfloat16), 2, warmup=1),
+            library_ms=cuda_ms(lambda: F.conv2d(x, w, bias16, padding=1), 20),
+            **bound(px * C + 9 * C * O + 4 * (n + 1) * O + 2 * px * O,
+                    2 * px * 9 * C * O, INT8_OPS_PER_S))
+        if (n, H, W, C, O) == CONV_SHAPES[0]:
+            shapes[f"{n}x{H}x{W}x{C}->{O}"].update(host_and_device(
+                lambda: mm.conv3x3_int8(x_q, w_q, scale, bias,
+                                        torch.bfloat16)))
+        del x_q, x, w
+    torch.cuda.empty_cache()
+    first = "x".join(map(str, CONV_SHAPES[0][:4])) + f"->{CONV_SHAPES[0][4]}"
+    results["conv3x3_int8"] = dict(
+        source="microbeseg_torch/csrc/matmul.cu",
+        replaces="scripts/bench_pallas_int8_dot.py:46",
+        shape=list(CONV_SHAPES[0]), shapes=shapes, **shapes[first])
 
 
 def plain_flood(value, markers, mask, n_levels, max_label):
@@ -502,9 +758,7 @@ def plain_kernels():
     """The plain versions, as arguments of the post-processing functions."""
     from microbeseg_torch.ops import cc
 
-    return dict(cc_fn=cc.connected_components_plain,
-                rank_fn=cc.sequentialize_components_plain,
-                flood_fn=plain_flood)
+    return dict(label_fn=cc.ranked_components_plain, flood_fn=plain_flood)
 
 
 def field_thresholds(engine, warm):
@@ -543,6 +797,9 @@ def driven_segment(engine, frames, th_cell, th_seed, must_launch):
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{frames.shape[1]}^2 path")
+    if launches["sequentialize_components"]:
+        raise AssertionError("the general rank relabel ran on the "
+                             f"{frames.shape[1]}^2 path")
     if engine.oom_count:
         raise AssertionError(f"{engine.oom_count} out-of-memory fallbacks")
     if masks.shape != frames.shape or masks.dtype != np.uint16:
@@ -579,7 +836,7 @@ def main_path(dev, report, model, cpu_model, n_params):
     torch.cuda.reset_peak_memory_stats()
     masks, first_s, launches, n_inst = driven_segment(
         engine, frames, th_cell, th_seed,
-        ("flood_packed", "connected_components", "sequentialize_components"))
+        ("flood_packed", "ranked_components"))
 
     # same predictions -> kernel post-processing == plain post-processing
     border, cell = engine._predict_raw_dev(frames)
@@ -595,6 +852,30 @@ def main_path(dev, report, model, cpu_model, n_params):
         raise AssertionError("post-processing: kernels differ from plain "
                              f"on {(kern != plain).sum()} px")
     same_as_segment = float((kern == masks).mean())
+
+    # the two general kernels, K3 then K4 on its ids, in ranked_components'
+    # place: the same masks again, with the counters set to 0 before
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.ops import cc
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    two_step = np.concatenate([
+        _distance_postprocessing(
+            border[s:s + B], cell[s:s + B], th_seed, th_cell, max_seeds=256,
+            label_fn=lambda m: cc.sequentialize_components(
+                cc.connected_components(m))).cpu().numpy()
+        for s in range(0, N_FRAMES, B)])
+    general = dict(_build.LAUNCHES)
+    n_batches = N_FRAMES // B
+    if (not np.array_equal(two_step, kern)
+            or general["connected_components"] != n_batches
+            or general["sequentialize_components"] != n_batches
+            or general["ranked_components"]):
+        raise AssertionError(
+            "post-processing on K3 and the general K4: masks differ from "
+            f"ranked_components' on {(two_step != kern).sum()} px, launches "
+            f"{general}")
 
     # bf16 forward on the card vs float32 forward on the CPU, small input
     small = blob_frames(rng, 2, 64)
@@ -612,7 +893,8 @@ def main_path(dev, report, model, cpu_model, n_params):
     report["main_path"] = dict(
         model="DUNet filters (64, 1024) bn relu conv, bf16 autocast",
         params=n_params, frames=[N_FRAMES, SIDE, SIDE], batch=B,
-        launches=launches, instances_per_frame=n_inst,
+        launches=launches, general_kernels_launches=general,
+        instances_per_frame=n_inst,
         segment_first_s=first_s, segment_s=seg_s,
         crops_per_s=N_FRAMES / seg_med, forward_ms_per_batch=fwd_ms,
         postprocess_ms_per_batch=post_ms,
@@ -624,7 +906,7 @@ def main_path(dev, report, model, cpu_model, n_params):
           f"post-processing {post_ms:.3f} ms per batch of {B}; "
           f"launches {launches}; instances/frame {min(n_inst)}-"
           f"{max(n_inst)}", flush=True)
-    return launches, (th_cell, th_seed)
+    return launches, general, (th_cell, th_seed)
 
 
 def card_vs_cpu(engine, ref_engine, frames, tol=0.05):
@@ -661,7 +943,7 @@ def big_path(dev, report, model):
     torch.cuda.reset_peak_memory_stats()
     masks, first_s, launches, n_inst = driven_segment(
         engine, frames, th_cell, th_seed,
-        ("flood_tiled", "connected_components", "sequentialize_components"))
+        ("flood_tiled", "ranked_components"))
     if launches["flood_packed"]:
         raise AssertionError("the crop flood ran on 2048^2 frames")
     if int(masks.max()) <= 255:
@@ -831,22 +1113,23 @@ def masks_iou(a, b):
 
 def equal_on_plain_product(engine, frames, what):
     """The engine's predictions for ``frames`` through K5 must equal, bit for
-    bit, those of the same engine with ``matmul_int8_plain`` in K5's place.
+    bit, those of the same engine with ``conv3x3_int8_plain`` (the 9-tap
+    operand, the float64 product and the float32 dequantise) in K5's place.
     Returns the predictions."""
     from microbeseg_torch.kernels import _build
     from microbeseg_torch.models import blocks
-    from microbeseg_torch.ops.kernels.matmul import matmul_int8_plain
+    from microbeseg_torch.ops.kernels.matmul import conv3x3_int8_plain
 
     preds = engine._predict_raw_dev(frames)
-    kernel_fn = blocks.matmul_int8
-    blocks.matmul_int8 = matmul_int8_plain
+    kernel_fn = blocks.conv3x3_int8
+    blocks.conv3x3_int8 = conv3x3_int8_plain
     try:
         _build.reset_launches()
         plain_preds = engine._predict_raw_dev(frames)
-        if _build.LAUNCHES["matmul_int8"]:
+        if _build.LAUNCHES["conv3x3_int8"] or _build.LAUNCHES["matmul_int8"]:
             raise AssertionError(f"{what}: the plain run launched K5")
     finally:
-        blocks.matmul_int8 = kernel_fn
+        blocks.conv3x3_int8 = kernel_fn
     for got, want in zip(preds, plain_preds):
         if not torch.isfinite(got).all():
             raise AssertionError(f"{what}: non-finite int8 predictions")
@@ -882,7 +1165,7 @@ def int8_path(dev, report, model, thresholds):
               if isinstance(m, blocks.QuantConv) and m.calibrated]
     amax = [float(m.act_amax) for m in layers]
     per_batch = 5
-    calib_launches = _build.LAUNCHES["matmul_int8"] - per_batch
+    calib_launches = _build.LAUNCHES["conv3x3_int8"] - per_batch
     if (engine._quant_shapes != {(SIDE, SIDE)} or len(layers) != per_batch
             or min(amax) <= 0 or calib_launches != per_batch):
         raise AssertionError(
@@ -895,14 +1178,16 @@ def int8_path(dev, report, model, thresholds):
     torch.cuda.reset_peak_memory_stats()
     masks, first_s, launches, n_inst = driven_segment(
         engine, frames, th_cell, th_seed,
-        ("flood_packed", "connected_components", "sequentialize_components",
-         "matmul_int8"))
+        ("flood_packed", "ranked_components", "conv3x3_int8"))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     n_batches = N_FRAMES // B
-    if launches["matmul_int8"] != per_batch * n_batches:
-        raise AssertionError(f"K5 launched {launches['matmul_int8']} times "
-                             f"on {n_batches} batches, expected "
-                             f"{per_batch * n_batches}")
+    if (launches["conv3x3_int8"] != per_batch * n_batches
+            or launches["matmul_int8"]):
+        raise AssertionError(
+            f"K5's convolution launched {launches['conv3x3_int8']} times on "
+            f"{n_batches} batches, expected {per_batch * n_batches}, and the "
+            f"9-tap operand's product {launches['matmul_int8']} times, "
+            "expected 0")
     if [float(m.act_amax) for m in layers] != amax:
         raise AssertionError("a second calibration pass ran")
     if not np.array_equal(engine.segment(frames, th_cell, th_seed), masks):
@@ -923,16 +1208,25 @@ def int8_path(dev, report, model, thresholds):
         x_q, x_scale = layer.quantized_input(x)
         taps = layer.tap_operand(x_q)
         y = blocks.matmul_int8(taps, w_q).view(B, SIDE, SIDE, -1)
+        scale, bias = x_scale * w_scale, layer.bias.detach().float()
+        fused = blocks.conv3x3_int8(x_q, w_q, scale, bias, torch.bfloat16)
+        if not torch.equal(fused.permute(0, 3, 1, 2),
+                           layer.dequantize(y, x_scale, w_scale, x)):
+            raise AssertionError("conv3x3_int8 differs from tap_operand, "
+                                 "matmul_int8 and dequantize in turn")
         stages = dict(
             quantize_weight=cuda_ms(layer.quantized_weight, 20),
             quantize_input=cuda_ms(lambda: layer.quantized_input(x), 20),
+            conv3x3_int8=cuda_ms(lambda: blocks.conv3x3_int8(
+                x_q, w_q, scale, bias, torch.bfloat16), 20),
+            whole_layer=cuda_ms(lambda: layer.forward_int8(x), 20),
+            cudnn_bf16_layer=cuda_ms(lambda: layer(x), 20),
+            # the three stages that conv3x3_int8 stands for
             tap_operand=cuda_ms(lambda: layer.tap_operand(x_q), 20),
             matmul_int8=cuda_ms(lambda: blocks.matmul_int8(taps, w_q), 20),
             dequantize=cuda_ms(
-                lambda: layer.dequantize(y, x_scale, w_scale, x), 20),
-            whole_layer=cuda_ms(lambda: layer.forward_int8(x), 20),
-            cudnn_bf16_layer=cuda_ms(lambda: layer(x), 20))
-    del x, x_q, taps, y
+                lambda: layer.dequantize(y, x_scale, w_scale, x), 20))
+    del x, x_q, taps, y, fused
     print("int8 layer 64 -> 64 on 16 x 256^2, ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
 
@@ -967,7 +1261,7 @@ def int8_path(dev, report, model, thresholds):
           f"{out['crops_per_s']:.1f} crops/s (bf16 beside it "
           f"{out['bf16_crops_per_s']:.1f}); forward {min(fwd_q):.3f} ms per "
           f"batch (bf16 {min(fwd_ref):.3f}); K5 launches "
-          f"{launches['matmul_int8']} + {calib_launches} calibrating; "
+          f"{launches['conv3x3_int8']} + {calib_launches} calibrating; "
           f"predictions equal the plain product's; vs bf16: relative RMS "
           f"{rel_rms[0]:.4f} / {rel_rms[1]:.4f}, mask IoU min "
           f"{min(ious):.4f} mean {statistics.mean(ious):.4f}; peak "
@@ -981,16 +1275,16 @@ def int8_path(dev, report, model, thresholds):
     torch.cuda.reset_peak_memory_stats()
     big_masks, big_s, big_launches, big_inst = driven_segment(
         tiled, frame, *th_big,
-        ("flood_tiled", "connected_components", "sequentialize_components",
-         "matmul_int8"))
+        ("flood_tiled", "ranked_components", "conv3x3_int8"))
     n_tiles = report["big_path"]["tiles_per_frame"]
     n_calls = -(-n_tiles // report["big_path"]["tiles_per_forward"])
     n_cal = sum(m.calibrated for m in tiled.models[0].modules()
                 if isinstance(m, blocks.QuantConv))
-    if (big_launches["matmul_int8"] != 11 * (1 + n_calls) or n_cal != 11
+    if (big_launches["conv3x3_int8"] != 11 * (1 + n_calls) or n_cal != 11
+            or big_launches["matmul_int8"]
             or tiled._quant_shapes != {(cfg.tile_size, cfg.tile_size)}):
         raise AssertionError(
-            f"tiled int8: {big_launches['matmul_int8']} K5 launches on 1 "
+            f"tiled int8: {big_launches['conv3x3_int8']} K5 launches on 1 "
             f"calibration pass + {n_calls} tile calls, {n_cal} calibrated "
             f"layers, shapes {tiled._quant_shapes}")
     t0 = time.perf_counter()
@@ -1007,12 +1301,37 @@ def int8_path(dev, report, model, thresholds):
     # the plain int8 product: identical stitched predictions
     equal_on_plain_product(tiled, frame, "int8 tiles")
     print(f"int8 tiled segment: one {BIG}^2 frame in {again_s:.4f} s; K5 "
-          f"launches {big_launches['matmul_int8']} = 11 x (1 calibrating + "
+          f"launches {big_launches['conv3x3_int8']} = 11 x (1 calibrating + "
           f"{n_calls} tile calls); predictions equal the plain product's; "
           f"instances {big_inst}; peak "
           f"{out['tiled']['peak_mem_gib']:.2f} GiB", flush=True)
+
+    # a narrow model (filters 24 -> 384): its int8 layers have 24 or 48
+    # input channels, no multiple of 64, so the wrapper's shape rule sends
+    # them through tap_operand -> matmul_int8 -> the PyTorch dequantise
+    from microbeseg_torch.config import ModelConfig
+
+    narrow = InferenceEngine(
+        seeded_model(11, ModelConfig(filters=(24, 384)))[0], "distance",
+        device=dev, cfg=InferConfig(quantize=True))
+    narrow_th = field_thresholds(narrow, warm)   # calibrates
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    narrow_masks = narrow.segment(frames[:B], *narrow_th)
+    narrow_launches = dict(_build.LAUNCHES)
+    if (narrow_launches["matmul_int8"] != per_batch
+            or narrow_launches["conv3x3_int8"]
+            or narrow_masks.shape != (B, SIDE, SIDE)):
+        raise AssertionError(
+            f"narrow int8 model: launches {narrow_launches}, expected "
+            f"{per_batch} of matmul_int8 and none of conv3x3_int8")
+    equal_on_plain_product(narrow, frames[:B], "narrow int8 model")
+    out["narrow_model"] = dict(filters=[24, 384], launches=narrow_launches)
+    print(f"narrow int8 model (24 -> 384): {narrow_launches['matmul_int8']} "
+          f"matmul_int8 launches per batch, predictions equal the plain "
+          f"product's", flush=True)
     report["int8_path"] = out
-    return [launches, big_launches]
+    return [launches, big_launches], narrow_launches
 
 
 def cli_path(dev, report, model, thresholds):
@@ -1048,9 +1367,9 @@ def cli_path(dev, report, model, thresholds):
         single = imread(tmp / "out" / "mask_a_single_channel0.tif")
         stack = imread(tmp / "out" / "mask_b_stack_channel0.tif")
     # one calibration pass on the first file, then one forward per file
-    if rc != 0 or launches["matmul_int8"] != 5 * 3:
+    if rc != 0 or launches["conv3x3_int8"] != 5 * 3:
         raise AssertionError(f"CLI: exit {rc}, K5 launches "
-                             f"{launches['matmul_int8']}, expected 15")
+                             f"{launches['conv3x3_int8']}, expected 15")
     if (single.shape != (SIDE, SIDE) or stack.shape != (2, SIDE, SIDE)
             or single.dtype != np.uint16 or stack.dtype != np.uint16):
         raise AssertionError(f"CLI masks {single.shape} {stack.shape}")
@@ -1069,7 +1388,7 @@ def cli_path(dev, report, model, thresholds):
                               instances_per_frame=n_inst)
     print(f"cli infer_local --quantize: 2 files, 3 frames in {seconds:.2f} s "
           f"(checkpoint load included); K5 launches "
-          f"{launches['matmul_int8']}; instances/frame {n_inst}", flush=True)
+          f"{launches['conv3x3_int8']}; instances/frame {n_inst}", flush=True)
     return launches
 
 
@@ -1095,25 +1414,35 @@ def main() -> int:
     print(f"built {sorted(logs)} in {report['build_s']:.1f} s", flush=True)
 
     check_kernels(dev, report)
+    report["stream_handle_us"] = stream_handle_us(dev)
+    print(f"stream handle for a launch, host us: "
+          f"{report['stream_handle_us']}", flush=True)
     model, n_params = seeded_model(0)
     cpu_model = seeded_model(0)[0]
-    crop_launches, thresholds = main_path(dev, report, model, cpu_model,
-                                          n_params)
+    crop_launches, general_launches, thresholds = main_path(
+        dev, report, model, cpu_model, n_params)
     big_launches = big_path(dev, report, model)
     small_checks(dev, report, model, cpu_model, thresholds)
-    int8_launches = int8_path(dev, report, model, thresholds)
+    int8_launches, narrow_launches = int8_path(dev, report, model, thresholds)
     cli_launches = cli_path(dev, report, model, thresholds)
     report["total_s"] = time.perf_counter() - t0
-    # launches: those of the driven segment and CLI calls together
+    # launches: those of the full-width paths' own runs (crop, tiled frame,
+    # int8 crop, int8 tiled frame, CLI), each counted from 0.  The two side
+    # runs (K3 + the general K4 as label_fn, the narrow int8 model) are kept
+    # apart under side_run_launches.
     driven = [crop_launches, big_launches, *int8_launches, cli_launches]
-    launches = {k: sum(d[k] for d in driven) for k in crop_launches}
+    launches = {k: sum(d[k] for d in driven) for k in _build.LAUNCHES}
+    side = {k: general_launches[k] + narrow_launches[k]
+            for k in _build.LAUNCHES}
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[name],
+                    side_run_launches=side[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{k: v for k, v in r.items()
-                       if k.endswith("_2048") or k in ("shape", "shapes")})
+                       if k.endswith("_2048") or k in (
+                           "shape", "shapes", "host_ms", "device_us")})
                for name, r in report["kernels"].items()]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC --split-compile 0 \
+         -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``),
 then loaded with ``ctypes``.  No ``--use_fast_math``: the flood kernel must
@@ -34,7 +35,9 @@ SOURCES = ("flood", "flood_frame", "cc", "matmul")
 LAUNCHES: Dict[str, int] = {"flood_packed": 0, "flood_tiled": 0,
                             "connected_components": 0,
                             "sequentialize_components": 0,
-                            "matmul_int8": 0, "matmul_bf16": 0}
+                            "ranked_components": 0,
+                            "matmul_int8": 0, "matmul_bf16": 0,
+                            "conv3x3_int8": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -64,7 +67,8 @@ def _lib_path(name: str) -> Path:
 def _nvcc_cmd(name: str, out: Path) -> list:
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", str(out), str(CSRC / f"{name}.cu")]
+            "--split-compile", "0", "-Xptxas", "-v", "-o", str(out),
+            str(CSRC / f"{name}.cu")]
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
@@ -107,18 +111,41 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+_ENTRIES: Dict[tuple, object] = {}
+
+
+def entry(lib: str, name: str, n_ptrs: int, n_ints: int):
+    """The C entry ``name`` of ``csrc/<lib>.cu``: ``n_ptrs`` pointers, then
+    ``n_ints`` ints, then the stream; returns the launches'
+    ``cudaGetLastError()``.  Looked up and typed once."""
+    fn = _ENTRIES.get((lib, name))
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
+        _ENTRIES[(lib, name)] = fn
+    return fn
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry returned a CUDA error (its cudaGetLastError())."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def stream_ptr(tensor) -> ctypes.c_void_p:
-    """PyTorch's current stream on the tensor's device, for a launch."""
+def stream_ptr(tensor) -> int:
+    """PyTorch's current stream on the tensor's device, for a launch: the
+    raw handle, as PyTorch's own generated launchers fetch it.  Building a
+    ``torch.cuda.Stream`` for it (``torch.cuda.current_stream(dev)
+    .cuda_stream``) costs several microseconds more on every launch;
+    ``chip_smoke.py`` times both."""
     import torch
-    return ctypes.c_void_p(
-        torch.cuda.current_stream(tensor.device).cuda_stream)
+    index = tensor.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
-def ptr(tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(tensor.data_ptr())
+def ptr(tensor) -> int:
+    return tensor.data_ptr()

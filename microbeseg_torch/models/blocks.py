@@ -7,7 +7,8 @@ Module and attribute names follow the reference's ``src/utils/unets.py``
 
 ``QuantConv`` is the int8 3x3 convolution of ``InferConfig.quantize``: the
 same ``weight`` and ``bias`` as the ``nn.Conv2d`` it extends, and an int8
-path whose product runs through kernel K5 (``ops/kernels/matmul.py``).
+path whose product runs through kernel K5 (``ops/kernels/matmul.py``,
+``conv3x3_int8``).
 ``_MatmulUp`` is the 2x2 stride-2 transposed convolution as one matrix
 product, with ``nn.ConvTranspose2d``'s parameters.
 """
@@ -18,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from microbeseg_torch.ops.kernels.matmul import matmul_int8
+from microbeseg_torch.ops.kernels.matmul import (conv3x3_int8, dequantize,
+                                                 matmul_int8, tap_operand)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -101,9 +103,13 @@ class QuantConv(nn.Conv2d):
       own ``|x|`` maximum;
     - the convolution is the sum over the 9 taps of int8 products in int32:
       the (B * H * W, 9 * C_in) operand of ``tap_operand`` times ``w_q`` as
-      (9 * C_in, C_out), through ``matmul_int8``;
+      (9 * C_in, C_out);
     - the result is ``y * (x_scale * w_scale) + bias`` in float32, cast to
       the working dtype (autocast's, else float32).
+
+    ``forward_int8`` hands the last two steps to ``conv3x3_int8`` (kernel
+    K5's convolution entry); ``tap_operand``, ``int32_conv`` and
+    ``dequantize`` are the same steps one by one, the plain version's parts.
 
     Calibration: while ``calibrating`` is set, ``forward_int8`` runs on the
     per-sample scales and keeps the batch's ``|x|`` maximum aside;
@@ -140,20 +146,7 @@ class QuantConv(nn.Conv2d):
         x_q = torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8)
         return x_q, x_scale
 
-    @staticmethod
-    def tap_operand(x_q: torch.Tensor) -> torch.Tensor:
-        """x_q (B, H, W, C) int8 -> (B * H * W, 9 * C) int8: the 3x3 windows
-        of the zero-padded ``x_q`` in tap order (dy, dx, c).  The windows are
-        a strided view that one copy makes contiguous; the copy moves a
-        pixel's C bytes as the widest integers that divide them, not byte
-        by byte.  (``F.unfold`` has no int8 on the card.)"""
-        B, H, W, C = x_q.shape
-        word = next(dt for dt, n in ((torch.int64, 8), (torch.int32, 4),
-                                     (torch.int16, 2), (torch.int8, 1))
-                    if C % n == 0)
-        xp = F.pad(x_q.contiguous().view(word), (0, 0, 1, 1, 1, 1))
-        taps = xp.unfold(1, 3, 1).unfold(2, 3, 1).permute(0, 1, 2, 4, 5, 3)
-        return taps.reshape(B * H * W, -1).view(torch.int8)
+    tap_operand = staticmethod(tap_operand)
 
     def int32_conv(self, x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
         """x_q (B, H, W, C) int8, w_q (9 * C, O) int8 -> (B, H, W, O) int32."""
@@ -164,14 +157,19 @@ class QuantConv(nn.Conv2d):
                    w_scale: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         """int32 sums (B, H, W, O) -> NCHW output in the working dtype and
         in the memory format of ``like``."""
-        out = y.float() * (x_scale * w_scale) + self.bias.detach().float()
-        out = out.to(_compute_dtype(like.device.type))
+        out = dequantize(y, x_scale * w_scale, self.bias.detach().float(),
+                         _compute_dtype(like.device.type))
         return _in_format_of(out.permute(0, 3, 1, 2), like)
 
     def forward_int8(self, x: torch.Tensor) -> torch.Tensor:
+        """``dequantize(int32_conv(...))`` as one call of ``conv3x3_int8``,
+        whose kernel writes neither the 9-tap operand nor the int32 sums."""
         w_q, w_scale = self.quantized_weight()
         x_q, x_scale = self.quantized_input(x)
-        return self.dequantize(self.int32_conv(x_q, w_q), x_scale, w_scale, x)
+        out = conv3x3_int8(x_q, w_q, x_scale * w_scale,
+                           self.bias.detach().float(),
+                           _compute_dtype(x.device.type))
+        return _in_format_of(out.permute(0, 3, 1, 2), x)
 
     def commit_calibration(self) -> None:
         """Merge the maximum the last calibrating pass saw, if it reached

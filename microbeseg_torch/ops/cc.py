@@ -1,5 +1,10 @@
 """Kernels K3 and K4: connected components and the root-rank relabel.
 
+``ranked_components(mask)`` is what post-processing needs, the components
+numbered 1..n in raster order of their last pixels:
+``sequentialize_components(connected_components(mask))`` from one union-find
+forest, with no plane of ids in between (``csrc/cc.cu::ranked_launch``).
+
 ``connected_components(mask)`` labels every pixel of a component with the
 component's max linear index + 1 (8-connected by default), the unique fixed
 point of ``microbeseg_tpu/ops/cc.py::connected_components``.
@@ -19,14 +24,13 @@ kernels.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
 from microbeseg_torch.kernels import _build
 
 _STEPS_PER_CHECK = 4
+_RANK_BLOCK = 256   # pixels per block of the ranked_components kernels
 
 
 def _batch(x: torch.Tensor):
@@ -114,11 +118,7 @@ def _root_ranks(labels: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(name: str, entry: str, n_ptrs: int, n_ints: int, args) -> None:
-    fn = getattr(_build.load("cc"), entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
-    _build.check(fn(*args), name)
+    _build.check(_build.entry("cc", entry, n_ptrs, n_ints)(*args), name)
     _build.LAUNCHES[name] += 1
 
 
@@ -141,6 +141,44 @@ def connected_components(mask: torch.Tensor,
     _launch("connected_components", "cc_launch", 3, 4,
             (_build.ptr(m), _build.ptr(parent), _build.ptr(out), B, H, W,
              connectivity, _build.stream_ptr(m)))
+    return out[0] if squeeze else out
+
+
+def ranked_components_plain(mask: torch.Tensor,
+                            connectivity: int = 2) -> torch.Tensor:
+    """The components of ``mask`` numbered 1..n in raster order of their
+    roots (each component's last pixel): the two plain versions in turn.
+    (B, H, W) or (H, W) bool -> int32."""
+    return sequentialize_components_plain(
+        connected_components_plain(mask, connectivity))
+
+
+def ranked_components(mask: torch.Tensor,
+                      connectivity: int = 2) -> torch.Tensor:
+    """``sequentialize_components(connected_components(mask, connectivity))``
+    in one kernel call: (B, H, W) or (H, W) bool -> int32 ranks 1..n per
+    image, 0 for background.  CPU tensors run the plain version."""
+    if mask.device.type == "cpu":
+        return ranked_components_plain(mask, connectivity)
+    if mask.device.type != "cuda":
+        raise RuntimeError(f"ranked_components: unsupported device "
+                           f"{mask.device}")
+    if connectivity not in (1, 2):
+        raise ValueError(f"connectivity must be 1 or 2, got {connectivity}")
+    m, squeeze = _batch(mask.to(torch.bool).contiguous())
+    B, H, W = m.shape
+    if B * H * W >= 1 << 31:
+        raise ValueError(f"ranked_components: {B} x {H} x {W} pixels do not "
+                         "fit the kernel's int32 indices")
+    out = torch.empty((B, H, W), dtype=torch.int32, device=m.device)
+    parent = torch.empty((B, H, W), dtype=torch.int32, device=m.device)
+    # roots per block of _RANK_BLOCK pixels, then their prefix per image
+    counts = torch.empty((B, -(-H * W // _RANK_BLOCK)), dtype=torch.int32,
+                         device=m.device)
+    _launch("ranked_components", "ranked_launch", 4, 4,
+            (_build.ptr(m), _build.ptr(parent), _build.ptr(out),
+             _build.ptr(counts), B, H, W, connectivity,
+             _build.stream_ptr(m)))
     return out[0] if squeeze else out
 
 

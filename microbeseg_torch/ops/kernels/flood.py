@@ -23,7 +23,6 @@ version beside it, the same steps in PyTorch.
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -152,11 +151,7 @@ def flood_packed(value: torch.Tensor, markers: torch.Tensor,
     if steps_out is None:
         steps_out = torch.empty((B,), dtype=torch.int32, device=dev)
     _check_work_out(work_out, B, dev)
-    lib = _build.load("flood")
-    fn = lib.flood_packed_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
+    fn = _build.entry("flood", "flood_packed_launch", 9, 7)
     err = fn(_build.ptr(value), _build.ptr(markers), _build.ptr(mask),
              _build.ptr(out), _build.ptr(scratch[0]), _build.ptr(scratch[1]),
              _build.ptr(scratch[2]), _build.ptr(steps_out),
@@ -257,10 +252,7 @@ def flood_tiled(value: torch.Tensor, markers: torch.Tensor,
     if steps_out is None:
         steps_out = torch.empty((B,), dtype=torch.int32, device=dev)
     _check_work_out(work_out, B, dev)
-    fn = _build.load("flood_frame").flood_frame_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
+    fn = _build.entry("flood_frame", "flood_frame_launch", 7, 6)
     with torch.cuda.device(dev):  # the launch sizes its grid for this card
         err = fn(_build.ptr(qs), _build.ptr(key0), _build.ptr(scratch),
                  _build.ptr(out), _build.ptr(flags), _build.ptr(steps_out),

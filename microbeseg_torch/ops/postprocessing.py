@@ -1,8 +1,8 @@
 """Instance extraction from CNN predictions, batched over frames.
 
 Port of ``microbeseg_tpu/ops/postprocessing.py``: the distance method
-(gaussian smoothing, seed thresholding, connected components, root-rank
-relabel, small-seed prune, then the marker flood -> uint16 masks), the
+(gaussian smoothing, seed thresholding, connected components ranked in
+raster order, small-seed prune, then the marker flood -> uint16 masks), the
 boundary method (argmax mask, seeds from cell and boundary probability, the
 same prune and flood) and the distance method over a grid of threshold
 pairs.  The JAX functions work on one frame and the engine vmaps them; here
@@ -26,8 +26,7 @@ _MAX_PACKED = (1 << 24) - 1
 
 def _prune_small_seeds(seeds_bin: torch.Tensor, min_area_floor: float,
                        rel_mean: float, max_seeds: int = 256,
-                       cc_fn=cc.connected_components,
-                       rank_fn=cc.sequentialize_components) -> torch.Tensor:
+                       label_fn=cc.ranked_components) -> torch.Tensor:
     """Label seed components sequentially, drop those with area <=
     max(rel_mean * mean_area, floor), compact the survivors to 1..n and drop
     ids past ``max_seeds``.  seeds_bin (B, H, W) bool -> (B, H, W) int32.
@@ -36,8 +35,9 @@ def _prune_small_seeds(seeds_bin: torch.Tensor, min_area_floor: float,
     ranks, so speckle that outnumbers the real seeds cannot push them past
     the cap; the mean area includes the speckle, as the reference's does.
     Areas are a batched ``bincount``; the table lookup a ``gather``.
-    ``cc_fn`` and ``rank_fn`` label and rank the components."""
-    rank = rank_fn(cc_fn(seeds_bin))
+    ``label_fn`` numbers the components 1..n in raster order of their
+    roots."""
+    rank = label_fn(seeds_bin)
     B = rank.shape[0]
     raw_cap = min(max(4 * max_seeds, 1024), _MAX_PACKED)
     rank = torch.where(rank > raw_cap, 0, rank).view(B, -1).to(torch.int64)
@@ -78,8 +78,7 @@ def distance_postprocessing(border_prediction: torch.Tensor,
 
 def _distance_postprocessing(border_prediction, cell_prediction, th_seed,
                              th_cell, max_seeds=256, n_levels=128,
-                             method="auto", cc_fn=cc.connected_components,
-                             rank_fn=cc.sequentialize_components,
+                             method="auto", label_fn=cc.ranked_components,
                              flood_fn=flood.flood_or_fallback):
     """``distance_postprocessing`` with its kernels as arguments, so that
     the plain versions can run on the card as the kernels' reference.
@@ -104,8 +103,7 @@ def _distance_postprocessing(border_prediction, cell_prediction, th_seed,
     seeds_bin = (cell - borders) > th_seed
 
     seeds = _prune_small_seeds(seeds_bin, min_area_floor=4.0, rel_mean=0.10,
-                               max_seeds=max_seeds, cc_fn=cc_fn,
-                               rank_fn=rank_fn)
+                               max_seeds=max_seeds, label_fn=label_fn)
     cell = cell.expand(mask.shape)  # one map under a grid of thresholds
     labels = _flood(method, -cell, seeds, mask, n_levels, max_seeds, flood_fn)
     return labels[0] if squeeze else labels
@@ -152,8 +150,7 @@ def boundary_postprocessing(prediction: torch.Tensor,
 
 
 def _boundary_postprocessing(prediction, max_seeds=256, method="auto",
-                             cc_fn=cc.connected_components,
-                             rank_fn=cc.sequentialize_components,
+                             label_fn=cc.ranked_components,
                              flood_fn=flood.flood_or_fallback):
     """``boundary_postprocessing`` with its kernels as arguments (see
     ``_distance_postprocessing``)."""
@@ -165,8 +162,7 @@ def _boundary_postprocessing(prediction, max_seeds=256, method="auto",
     mask = torch.argmax(prediction, dim=-1) == 1
     seeds_bin = (prediction[..., 1] * (1.0 - prediction[..., 2])) > 0.5
     seeds = _prune_small_seeds(seeds_bin, min_area_floor=4.0, rel_mean=0.0,
-                               max_seeds=max_seeds, cc_fn=cc_fn,
-                               rank_fn=rank_fn)
+                               max_seeds=max_seeds, label_fn=label_fn)
     labels = _flood(method, -mask.to(torch.float32), seeds, mask, 2,
                     max_seeds, flood_fn)
     return labels[0] if squeeze else labels

@@ -59,6 +59,40 @@ def test_kernels_match_plain(dev, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 256, 256), (1, 1000, 1400),
+                                   (3, 48, 816), (2, 9, 7)])
+def test_ranked_components_matches_plain(dev, shape):
+    """K4 for K3's ids, ranks from the mask in one call: blobs, blobs plus
+    600 speckles, dense speckle, an empty and a full mask, 4- and
+    8-connected, on shapes that the kernels' blocks of 256 pixels do and do
+    not divide."""
+    cell, _ = _fields(sum(shape), *shape)
+    rng = np.random.default_rng(shape[1])
+    blobs = cell > 0.6
+    speckled = blobs.copy()
+    n_px = shape[1] * shape[2]
+    for b in range(shape[0]):
+        speckled[b].flat[rng.choice(n_px, size=min(600, n_px // 2),
+                                    replace=False)] = True
+    dense = rng.random(shape) < 0.45
+    for mask in (blobs, speckled, dense, np.zeros(shape, bool),
+                 np.ones(shape, bool)):
+        m = torch.from_numpy(mask).to(dev)
+        for conn in (1, 2):
+            got = cc.ranked_components(m, conn)
+            assert got.dtype == torch.int32 and got.shape == m.shape
+            torch.testing.assert_close(
+                got, cc.ranked_components_plain(m, conn), rtol=0, atol=0)
+            torch.testing.assert_close(
+                got, cc.sequentialize_components(
+                    cc.connected_components(m, conn)), rtol=0, atol=0)
+    # one image, no batch axis
+    torch.testing.assert_close(
+        cc.ranked_components(m[0]), cc.ranked_components_plain(m[0]), rtol=0,
+        atol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 800, 800), (2, 12, 900)])
 def test_frame_flood_matches_plain(dev, shape):
     """K2 on frames with a side above 768, markers above 4095."""
@@ -68,7 +102,7 @@ def test_frame_flood_matches_plain(dev, shape):
     cell, _ = _fields(sum(shape), *shape)
     v = torch.from_numpy(-cell).to(dev)
     mask = v < -0.1
-    rank = cc.sequentialize_components(cc.connected_components(v < -0.6))
+    rank = cc.ranked_components(v < -0.6)
     markers = torch.where(rank > 0, rank + 5000, 0)
     for n_levels in (128, 2):
         got = flood_tiled(v, markers, mask, n_levels=n_levels)
@@ -98,8 +132,9 @@ def bf16_tolerance(a, b):
     (77, 33, 5), (512, 1152, 200), (16384, 100, 64)])
 def test_matmul_matches_plain(dev, shape):
     """K5: int8 exactly, bf16 within one bfloat16 step, on aligned, ragged
-    and path-like shapes (K not a multiple of 16 takes the gathering
-    loads)."""
+    and path-like shapes.  Rows of A that are 16-byte aligned take the wgmma
+    kernel; 1000 x 200 (int8), 77 x 33, 16384 x 100 and the odd-K row slices
+    take the mma.sync kernel with its gathering loads."""
     from microbeseg_torch.ops.kernels.matmul import (
         matmul_bf16, matmul_bf16_plain, matmul_int8, matmul_int8_plain)
 
@@ -128,3 +163,86 @@ def test_matmul_matches_plain(dev, shape):
     rtol, atol = bf16_tolerance(af, bf)
     torch.testing.assert_close(got.float(), matmul_bf16_plain(af, bf).float(),
                                rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300, 256, 200), (300, 256, 100),
+                                   (4099, 576, 64), (2048, 2048, 2048)])
+def test_matmul_routes_agree(dev, shape):
+    """Both kernels of K5 on a shape both take: the same int32 sums, and
+    bf16 results each within one bfloat16 step of the plain version.  With
+    N = 100 the rows of a bf16 B are not 16-byte aligned, so the wgmma
+    kernel reads the transposed copy; with the other N it reads B as it is
+    stored."""
+    from microbeseg_torch.ops.kernels import matmul as mm
+
+    M, K, N = shape
+    rng = np.random.default_rng(M + K + N)
+    a = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8)).to(dev)
+    b = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8)).to(dev)
+    assert mm._rows_aligned(a)
+    ref = mm.matmul_int8_plain(a, b)
+    for route in ("wgmma", "mma_sync"):
+        torch.testing.assert_close(
+            mm._launch("matmul_int8", a, b, torch.int32, route=route), ref,
+            rtol=0, atol=0)
+    af = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    bf = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
+    af, bf = af.to(dev, torch.bfloat16), bf.to(dev, torch.bfloat16)
+    rtol, atol = bf16_tolerance(af, bf)
+    ref = mm.matmul_bf16_plain(af, bf).float()
+    for route in ("wgmma", "mma_sync"):
+        torch.testing.assert_close(
+            mm._launch("matmul_bf16", af, bf, torch.bfloat16,
+                       route=route).float(), ref, rtol=rtol, atol=atol)
+    with pytest.raises(ValueError):
+        mm._launch("matmul_int8", a[:, :K - 3].contiguous(), b[:K - 3],
+                   torch.int32, route="wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [256, 512, 200])
+@pytest.mark.parametrize("channels", [(64, 64), (128, 64), (64, 128),
+                                      (256, 128), (16, 8), (8, 8),
+                                      (192, 130), (64, 44)])
+def test_conv3x3_int8_matches_plain(dev, channels, width):
+    """K5's convolution entry against the 9-tap operand, the float64 product
+    and the float32 dequantise in turn: exactly equal, float32 and bfloat16,
+    scales per channel and per sample and channel.  C_in 64, 128, 192 and
+    256 take the fused kernel (64, 128 and 256 columns a tile; weights
+    resident in shared memory for 64 -> 64, 128 -> 64 and 64 -> 128,
+    streamed for the rest; 44 and 130 output channels end inside a tile),
+    C_in 16 and 8 the chain through ``matmul_int8``."""
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.ops.kernels import matmul as mm
+
+    C, O = channels
+    n, H = 3, 9
+    rng = np.random.default_rng(C + O + width)
+    x_q = torch.from_numpy(
+        rng.integers(-127, 128, (n, H, width, C), dtype=np.int8)).to(dev)
+    w_q = torch.from_numpy(
+        rng.integers(-127, 128, (9 * C, O), dtype=np.int8)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(O).astype(np.float32)).to(dev)
+    for scale_shape in ((O,), (n, 1, 1, O)):
+        scale = torch.from_numpy(
+            rng.uniform(1e-6, 1e-4, scale_shape).astype(np.float32)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            before = dict(_build.LAUNCHES)
+            got = mm.conv3x3_int8(x_q, w_q, scale, bias, dtype)
+            fused = C % 64 == 0
+            assert (_build.LAUNCHES["conv3x3_int8"]
+                    - before["conv3x3_int8"]) == int(fused)
+            assert (_build.LAUNCHES["matmul_int8"]
+                    - before["matmul_int8"]) == int(not fused)
+            assert got.dtype == dtype and got.shape == (n, H, width, O)
+            torch.testing.assert_close(
+                got, mm.conv3x3_int8_plain(x_q, w_q, scale, bias, dtype),
+                rtol=0, atol=0)
+    # the extremes: every product +-127^2 inside, fewer taps at the border
+    ones = torch.full_like(x_q, 127)
+    got = mm.conv3x3_int8(ones, -torch.full_like(w_q, 127),
+                          torch.ones((O,), device=dev),
+                          torch.zeros((O,), device=dev), torch.float32)
+    assert float(got[:, 1:-1, 1:-1].max()) == -127.0 * 127 * 9 * C
+    assert float(got[:, 0, 0].min()) == -127.0 * 127 * 4 * C

@@ -1,5 +1,5 @@
 """Port vs JAX: the flood (K1), connected components (K3), root-rank relabel
-(K4), the gaussian and the 'flood' watershed on the same numpy inputs.
+(K4, and ``ranked_components``, K4 for K3's ids), the gaussian and the 'flood' watershed on the same numpy inputs.
 
 The port's wrappers run their plain PyTorch versions on CPU tensors; the
 JAX side runs its CPU path, with the Pallas flood in interpret mode.  K1, K3
@@ -167,6 +167,59 @@ class TestConnectedComponentsK3K4:
                               isolated_components=False))
         ours = tcc.sequentialize_components(torch.from_numpy(labels)).numpy()
         np.testing.assert_array_equal(ours, ref)
+
+
+def _speckled_blobs(rng, H=64, W=80):
+    """Blobs plus 600 single-pixel speckles."""
+    m = _blob_field(rng, H, W, 8)[0] > 0.6
+    m.flat[rng.choice(H * W, size=600, replace=False)] = True
+    return m
+
+
+class TestRankedComponents:
+    """``ranked_components(m, c)`` is JAX's
+    ``sequentialize_components(connected_components(m, c))``, exactly."""
+
+    @staticmethod
+    def _jax(mask, connectivity):
+        from microbeseg_tpu.ops.cc import (
+            connected_components as jcc, sequentialize_components as jseq)
+
+        labels = jcc(jnp.asarray(mask), connectivity=connectivity)
+        return np.asarray(jseq(labels,
+                               isolated_components=connectivity == 2))
+
+    @pytest.mark.parametrize("connectivity", [1, 2])
+    @pytest.mark.parametrize("case", ["speckled_blobs", "empty", "full"])
+    def test_matches_jax(self, case, connectivity):
+        rng = np.random.default_rng(31 + connectivity)
+        if case == "speckled_blobs":
+            masks = np.stack([_speckled_blobs(rng) for _ in range(2)])
+        else:
+            masks = np.full((2, 24, 40), case == "full")
+        ours = tcc.ranked_components(torch.from_numpy(masks),
+                                     connectivity=connectivity)
+        assert ours.dtype == torch.int32 and ours.shape == masks.shape
+        for i in range(2):
+            np.testing.assert_array_equal(
+                ours[i].numpy(), self._jax(masks[i], connectivity))
+        n = int(ours.max())
+        assert n == {"speckled_blobs": n, "empty": 0, "full": 1}[case]
+        if case == "speckled_blobs":
+            assert n > 100 and len(np.unique(ours[0].numpy())) - 1 == int(
+                ours[0].max())
+
+    def test_is_the_two_port_functions_in_turn(self):
+        rng = np.random.default_rng(41)
+        mask = torch.from_numpy(_seed_masks(rng))
+        for connectivity in (1, 2):
+            np.testing.assert_array_equal(
+                tcc.ranked_components(mask, connectivity).numpy(),
+                tcc.sequentialize_components(
+                    tcc.connected_components(mask, connectivity)).numpy())
+        assert tcc.ranked_components(mask).ndim == 2
+        with pytest.raises(RuntimeError, match="unsupported device"):
+            tcc.ranked_components(mask.to("meta"))
 
 
 class TestGaussian:

@@ -277,3 +277,61 @@ def test_packed_method_on_a_big_side_takes_the_frame_flood():
     for k in range(1, int(ref.max()) + 1):
         a, b = packed == k, ref == k
         assert (a & b).sum() / max((a | b).sum(), 1) >= 0.99
+
+
+@pytest.mark.parametrize("rel_mean", [0.10, 0.0])
+def test_prune_takes_one_label_fn_and_matches_jax(rel_mean):
+    """``_prune_small_seeds`` numbers the seed components with one function,
+    ``cc.ranked_components`` unless the caller names another, and gives what
+    JAX's gives from its two: blobs plus 600 speckles, the distance method's
+    and the boundary method's ``rel_mean``."""
+    from microbeseg_torch.ops import cc
+
+    rng = np.random.default_rng(17)
+    _, cell = _predictions(rng, shape=(64, 80))
+    seeds = cell > 0.5
+    seeds.flat[rng.choice(seeds.size, size=600, replace=False)] = True
+    calls = []
+
+    def label_fn(mask):
+        calls.append(tuple(mask.shape))
+        return cc.sequentialize_components_plain(
+            cc.connected_components_plain(mask))
+
+    ours = tpp._prune_small_seeds(torch.from_numpy(seeds[None]), 4.0,
+                                  rel_mean, max_seeds=256)
+    named = tpp._prune_small_seeds(torch.from_numpy(seeds[None]), 4.0,
+                                   rel_mean, max_seeds=256,
+                                   label_fn=label_fn)
+    ref = np.asarray(jpp._prune_small_seeds(jnp.asarray(seeds), 4.0,
+                                            rel_mean, max_seeds=256))
+    assert calls == [(1, 64, 80)]
+    np.testing.assert_array_equal(ours[0].numpy(), ref)
+    np.testing.assert_array_equal(named[0].numpy(), ref)
+    assert 0 < ours.max() < 600
+
+
+def test_postprocessing_label_fn_reaches_both_methods():
+    """``label_fn`` and ``flood_fn`` are the only kernels the distance and
+    the boundary method take; the plain pair gives the default's masks."""
+    from microbeseg_torch.ops import cc
+    from microbeseg_torch.ops.kernels import flood
+
+    border, cell = _batch(23, n=2)
+    probs = _boundary_probs(29, n=2)
+    plain = dict(label_fn=cc.ranked_components_plain,
+                 flood_fn=flood.flood_or_fallback)
+    got = tpp._distance_postprocessing(
+        torch.from_numpy(border), torch.from_numpy(cell), 0.45, 0.09,
+        method="pallas", **plain)
+    want = tpp.distance_postprocessing(
+        torch.from_numpy(border), torch.from_numpy(cell), 0.45, 0.09,
+        method="pallas")
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert got.numpy().max() > 0
+    got = tpp._boundary_postprocessing(torch.from_numpy(probs),
+                                       method="pallas", **plain)
+    want = tpp._boundary_postprocessing(torch.from_numpy(probs),
+                                        method="pallas")
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert got.numpy().max() > 0

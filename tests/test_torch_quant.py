@@ -29,6 +29,8 @@ from microbeseg_torch.models.convert import (
 )
 from microbeseg_torch.models.unet import build_unet
 from microbeseg_torch.ops.kernels.matmul import (
+    conv3x3_int8,
+    conv3x3_int8_plain,
     matmul_bf16,
     matmul_bf16_plain,
     matmul_int8,
@@ -217,6 +219,78 @@ def test_quantconv_output_dtype_follows_autocast():
             assert layer.forward_int8(x).dtype == torch.bfloat16
     assert "act_amax" not in layer.state_dict()
     assert set(layer.state_dict()) == {"weight", "bias"}
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+@pytest.mark.parametrize("working", ["float32", "bf16_autocast"])
+@pytest.mark.parametrize("width", [32, 40])
+@pytest.mark.parametrize("channels", [8, 16, 64])
+@pytest.mark.parametrize("scales", ["calibrated", "per_sample"])
+def test_conv3x3_int8_is_the_chain_bit_for_bit(scales, channels, width,
+                                               working, layout):
+    """``forward_int8`` (one ``conv3x3_int8`` call) equals ``int32_conv`` then
+    ``dequantize`` bit for bit on the CPU, for one scale per layer and one per
+    sample, both working types and both memory formats of the input."""
+    rng = np.random.default_rng(channels + width)
+    layer = blocks.QuantConv(channels, 12).eval()
+    with torch.no_grad():
+        layer.weight.copy_(torch.from_numpy(
+            rng.standard_normal(layer.weight.shape).astype(np.float32)))
+        layer.bias.copy_(torch.from_numpy(
+            rng.standard_normal(12).astype(np.float32)))
+    if scales == "calibrated":
+        layer.act_amax = torch.tensor(2.5)
+        layer.calibrated = True
+    x = torch.from_numpy(
+        (rng.standard_normal((3, channels, 24, width))
+         * np.array([0.5, 1.0, 3.0]).reshape(3, 1, 1, 1)).astype(np.float32))
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    autocast = torch.autocast("cpu", dtype=torch.bfloat16,
+                              enabled=working == "bf16_autocast")
+    with torch.no_grad(), autocast:
+        w_q, w_scale = layer.quantized_weight()
+        x_q, x_scale = layer.quantized_input(x)
+        chain = layer.dequantize(layer.int32_conv(x_q, w_q), x_scale,
+                                 w_scale, x)
+        got = layer.forward_int8(x)
+        direct = conv3x3_int8(x_q, w_q, x_scale * w_scale,
+                              layer.bias.detach().float(), chain.dtype)
+    assert got.dtype == chain.dtype == (
+        torch.bfloat16 if working == "bf16_autocast" else torch.float32)
+    assert got.shape == (3, 12, 24, width)
+    assert got.is_contiguous(
+        memory_format=torch.channels_last) == (layout == "channels_last")
+    assert got.stride() == chain.stride()
+    assert torch.equal(got, chain)
+    assert torch.equal(direct.permute(0, 3, 1, 2), chain)
+    assert float(got.float().abs().max()) > 0
+
+
+def test_conv3x3_int8_wrapper_refuses_what_the_kernel_does_not_take():
+    x_q = torch.zeros((2, 4, 4, 8), dtype=torch.int8)
+    w_q = torch.zeros((72, 3), dtype=torch.int8)
+    scale, bias = torch.ones(3), torch.zeros(3)
+    for fn in (conv3x3_int8, conv3x3_int8_plain):
+        out = fn(x_q, w_q, scale, bias)
+        assert out.shape == (2, 4, 4, 3) and out.dtype == torch.float32
+        assert fn(x_q, w_q, torch.ones(2, 1, 1, 3), bias,
+                  torch.bfloat16).dtype == torch.bfloat16
+        with pytest.raises(ValueError, match=r"\(9 \* C, O\)"):
+            fn(x_q, w_q[:71], scale, bias)
+        with pytest.raises(ValueError, match="must be int8"):
+            fn(x_q.float(), w_q, scale, bias)
+        with pytest.raises(ValueError, match="must be float32"):
+            fn(x_q, w_q, scale.double(), bias)
+        with pytest.raises(ValueError, match="out_dtype"):
+            fn(x_q, w_q, scale, bias, torch.float16)
+        with pytest.raises(ValueError, match="do not fit"):
+            fn(x_q, w_q, torch.ones(5), bias)
+        with pytest.raises(ValueError, match="empty"):
+            fn(x_q[:0], w_q, scale, bias)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        conv3x3_int8(x_q.to("meta"), w_q.to("meta"), scale.to("meta"),
+                     bias.to("meta"))
 
 
 @pytest.mark.parametrize("h,w,c_in,c_out,expected", [
