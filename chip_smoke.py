@@ -9,7 +9,11 @@
 3. Holds each kernel exactly against its plain PyTorch version on the card,
    at the shapes the main paths give it, and times kernel, plain version
    and, where one PyTorch call computes the same function, that call, with
-   CUDA events: K1 flood, K3 connected components, K4 rank relabel and
+   CUDA events: K1 flood on both of its kernels (one block per image, the
+   route ``flood_packed`` takes for up to 256 levels, and the 8-block
+   cluster per image), with equal step and work counts, at 16 x 256^2 (12-
+   and 24-bit keys) and at 16 images of each other pad bucket up to 768
+   (64, 128, 320, 512, 768); K3 connected components, K4 rank relabel and
    ``ranked_components`` (K4 for K3's ids: ranks straight from a mask, the
    entry the main paths call) at 16 x 256^2 on seeded blob fields, a speckle
    field, an empty and a full mask; K2, the frame flood, with markers above
@@ -32,8 +36,8 @@
    relu, conv pooling) with numpy-seeded weights and runs
    ``InferenceEngine.segment`` on 48 uint16 frames of 256^2 (3 batches of
    16), with every launch counter set to 0 just before and read just after.
-   Checks that K1 and ``ranked_components`` launched and the general K4
-   did not, that no out-of-memory fallback was taken, that the masks hold
+   Checks that K1's one-block kernel and ``ranked_components`` launched and
+   K1's cluster kernel and the general K4 did not, that no out-of-memory fallback was taken, that the masks hold
    instances, that the plain post-processing on the card gives the same
    masks from the same predictions, that post-processing with K3 followed by
    the general K4 as its labelling function gives them too (counters set to
@@ -73,7 +77,8 @@
    equal to the plain version's.
 8. The inference CLI: ``microbeseg_torch.cli.infer_local --quantize`` on a
    folder of two TIFFs, from a checkpoint of the seeded model that
-   ``save_model`` wrote; its masks equal the engine's on the same files.
+   ``save_model`` wrote; its masks equal the engine's on the same files,
+   and it launched K1's one-block kernel once per file.
 
 The next-to-last line of stdout is a JSON object with one entry per kernel.
 Its ``launches`` are those of the full-width paths' own runs (steps 4, 5, 7
@@ -109,6 +114,11 @@ INT_OPS_PER_S = 132 * 64 * 1.98e9
 # H100 SXM dense tensor-core peaks (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
+# K1's two kernels (the one-block kernel that flood_packed picks for up to
+# 256 levels, and the 8-block cluster kernel), and the pad buckets up to
+# 768 beside the crops' 256
+K1_ROUTES = ("block", "cluster")
+K1_SIDES = (64, 128, 320, 512, 768)
 # K5's shapes (M, K, N): the probe's; every shape the int8 layers give it
 # on 16 crops of 256^2 (level 0: enc0.conv1 and the decoders' conv1, K = 576;
 # the decoders' conv0, K = 1152) and on 8 tiles of 512^2 (level 0 at 512^2,
@@ -169,10 +179,14 @@ def host_and_device(fn, reps: int = 50) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return dict(host_ms=host_ms, device_us={
-        ev.key[:80]: ev.device_time_total / ev.count
-        for ev in prof.key_averages()
-        if ev.device_time_total > 0 and not ev.key.startswith("aten::")})
+    device_us = {}
+    for ev in prof.key_averages():
+        if (ev.device_time_total > 0 and not ev.key.startswith("aten::")
+                and not ev.key.startswith("Activity Buffer")):  # profiler's
+            # per call; kernels whose names share 80 characters add up
+            device_us[ev.key[:80]] = (device_us.get(ev.key[:80], 0.0)
+                                      + ev.device_time_total / reps)
+    return dict(host_ms=host_ms, device_us=device_us)
 
 
 def stream_handle_us(dev, reps: int = 20000) -> dict:
@@ -370,35 +384,38 @@ def check_kernels(dev, report):
         **ranked_times(seeds_bin, labels, 50, 3),
         **host_and_device(lambda: cc.ranked_components(seeds_bin)))
 
-    # K1 flood: 12-bit keys as on the main path, and 24-bit keys
+    # K1 flood, both kernels: 12-bit keys as on the main path, and 24-bit
+    # keys; then the counts, the times, and the other bucket sides
     mask = cell > 0.1
     for bits, offset in ((12, 0), (24, 5000)):
         markers = torch.where(ranks > 0, ranks + offset, 0)
+        want = flood.flood_packed_plain(-cell, markers, mask, label_bits=bits)
         exact("K1", flood.flood_packed(-cell, markers, mask, label_bits=bits),
-              flood.flood_packed_plain(-cell, markers, mask,
-                                       label_bits=bits))
-    # the work this run's data needs: the candidate pixels (in the mask,
-    # active at the level, still unlabelled) that the steps examined
-    steps = torch.empty((B,), dtype=torch.int32, device=dev)
-    work = torch.zeros((B,), dtype=torch.int64, device=dev)
-    flood.flood_packed(-cell, ranks, mask, steps_out=steps, work_out=work)
-    n_steps = int(steps.sum().item())
-    n_work = int(work.sum().item())
-    in_mask = mask.view(B, -1).sum(dim=1).to(torch.int64)
-    if not 0 < n_work <= int((steps.to(torch.int64) * in_mask).sum()):
-        raise AssertionError(f"K1 work count {n_work} out of range")
-    k1_ms = cuda_ms(lambda: flood.flood_packed(-cell, ranks, mask), 20)
-    k1_plain = cuda_ms(lambda: flood.flood_packed_plain(-cell, ranks, mask),
-                       2, warmup=1)
-    # per candidate pixel and step: 3 mins over the 4 neighbour keys, 1
-    # compare with the level's threshold, 1 and + 1 or to re-key
-    results["flood_packed"] = dict(
-        source="microbeseg_torch/csrc/flood.cu",
-        replaces="microbeseg_tpu/ops/pallas/flood.py:171",
-        max_abs_err=0, ms=k1_ms, plain_ms=k1_plain, library_ms=None,
-        bytes=px * (4 + 4 + 1 + 4), ops=n_work * 6,
-        steps_per_image=n_steps / B, candidates_per_image=n_work / B,
-        in_mask_share=float(in_mask.sum()) / px)
+              want)
+        for route in K1_ROUTES:
+            exact(f"K1 {route}", flood._launch_packed(
+                -cell, markers, mask, 128, 2, bits, route=route), want)
+    k1 = k1_routes(flood, -cell, ranks, mask, 20, 2)
+    split = k1_split((-cell).contiguous(), ranks.to(torch.int32).contiguous(),
+                     mask.contiguous())
+    for route in K1_ROUTES:
+        name = "flood_packed" if route == "block" else "flood_packed_cluster"
+        results[name] = dict(
+            source="microbeseg_torch/csrc/flood.cu",
+            replaces="microbeseg_tpu/ops/pallas/flood.py:171",
+            max_abs_err=0, ms=k1[route + "_ms"], plain_ms=k1["plain_ms"],
+            library_ms=None,
+            **{k: v for k, v in k1.items()
+               if k == "bound_ms" or not k.endswith("_ms")},
+            us_per_step=k1[route + "_ms"] * 1e3 / k1["steps_per_image"],
+            in_mask_share=float(mask.sum()) / px)
+    # the other pad buckets flood_packed takes, 16 images each
+    sides = {}
+    for side in K1_SIDES:
+        side_cell, side_ranks, side_mask = k1_fields(rng, dev, side)
+        sides[side] = k1_routes(flood, -side_cell, side_ranks, side_mask,
+                                5 if side > 320 else 20, 1)
+    results["flood_packed"].update(sides=sides, **split)
     check_big_kernels(dev, rng, results, exact)
     check_matmul(dev, results)
     for r in results.values():
@@ -411,9 +428,23 @@ def check_kernels(dev, report):
             r["bound_by" + suffix] = ("bytes" if t_bytes >= t_ops
                                       else "operations")
     report["kernels"] = results
+    k1 = results["flood_packed"]
     print(f"kernels exact vs plain at {B}x{SIDE}^2 and on large frames; K1 "
-          f"ran {n_steps / B:.1f} steps and examined {n_work / B:.1f} "
-          f"candidate pixels per image", flush=True)
+          f"(both kernels) ran {k1['steps_per_image']:.1f} steps (at most "
+          f"{k1['max_steps']}) and examined {k1['candidates_per_image']:.1f} "
+          f"candidate pixels per image: {k1['us_per_step']:.4f} us a step "
+          f"on the block kernel, "
+          f"{results['flood_packed_cluster']['us_per_step']:.4f} on the "
+          f"cluster kernel; block kernel set-up {k1['setup_ms']:.5f} ms, "
+          f"set-up and level updates {k1['setup_and_levels_ms']:.5f} ms, a "
+          f"step of an empty mask {k1['empty_step_us']:.4f} us", flush=True)
+    for side, t in k1["sides"].items():
+        print(f"K1 at {'x'.join(map(str, t['shape']))}: block {t['block_ms']:.5f} ms, cluster "
+              f"{t['cluster_ms']:.5f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}); "
+              f"{t['steps_per_image']:.1f} steps, "
+              f"{t['candidates_per_image']:.1f} candidates per image",
+              flush=True)
     for name, r in results.items():
         print(f"{name}: {r['ms']:.5f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
@@ -480,6 +511,95 @@ def ranked_times(mask, labels, reps, plain_reps):
             cc.connected_components(mask)), reps),
         plain_ms=cuda_ms(lambda: cc.ranked_components_plain(mask),
                          plain_reps, warmup=1))
+
+
+def k1_fields(rng, dev, side, n=B):
+    """``n`` blob fields of ``side``^2 at the crop check's density of blobs
+    (40 on 256^2), smoothed as the post-processing smooths; K4's ranks of
+    their seeds; their mask."""
+    from microbeseg_torch.ops import cc
+    from microbeseg_torch.ops.filters import gaussian_filter
+
+    n_blobs = max(2, round(40 * (side / SIDE) ** 2))
+    cell = torch.from_numpy(big_blob_fields(rng, n, (side, side), n_blobs))
+    cell = gaussian_filter(cell.to(dev), 0.5)
+    return cell, cc.ranked_components(cell > 0.6), cell > 0.1
+
+
+def k1_routes(flood, value, markers, mask, reps, plain_reps):
+    """Both K1 kernels on one input: each exactly equal to the plain
+    version, the same steps and work counts per image, and their times in
+    turns (block, cluster, cluster, block; the lower of each pair)."""
+    n = value.shape[0]
+    want = flood.flood_packed_plain(value, markers, mask)
+    counts = {}
+    for route in K1_ROUTES:
+        steps = torch.empty((n,), dtype=torch.int32, device=value.device)
+        work = torch.zeros((n,), dtype=torch.int64, device=value.device)
+        got = flood._launch_packed(value, markers, mask, 128, 2, 12, steps,
+                                   work, route=route)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"K1 {route} differs from plain at {tuple(value.shape)} on "
+                f"{int((got != want).sum())} px")
+        counts[route] = steps.to(torch.int64), work
+    (steps, work), (steps_c, work_c) = counts["block"], counts["cluster"]
+    if not (torch.equal(steps, steps_c) and torch.equal(work, work_c)):
+        raise AssertionError(
+            f"K1 at {tuple(value.shape)}: block kernel steps "
+            f"{steps.tolist()}, work {work.tolist()}; cluster kernel steps "
+            f"{steps_c.tolist()}, work {work_c.tolist()}")
+    in_mask = mask.view(n, -1).sum(dim=1).to(torch.int64)
+    n_work = int(work.sum())
+    if not 0 < n_work <= int((steps * in_mask).sum()):
+        raise AssertionError(f"K1 work count {n_work} out of range")
+    times = {route: [] for route in K1_ROUTES}
+    for route in K1_ROUTES + K1_ROUTES[::-1]:
+        times[route].append(cuda_ms(lambda: flood._launch_packed(
+            value, markers, mask, 128, 2, 12, route=route), reps))
+    # the function reads value, markers and mask and writes labels: 13 B a
+    # pixel; per candidate pixel and step: 3 mins over the 4 neighbour keys,
+    # 1 compare with the level's threshold, 1 and + 1 or to re-key
+    return dict(
+        shape=list(value.shape), block_ms=min(times["block"]),
+        cluster_ms=min(times["cluster"]),
+        plain_ms=cuda_ms(lambda: flood.flood_packed_plain(
+            value, markers, mask), plain_reps, warmup=1),
+        steps_per_image=float(steps.sum()) / n, max_steps=int(steps.max()),
+        candidates_per_image=n_work / n,
+        **bound(value.numel() * (4 + 4 + 1 + 4), n_work * 6, INT_OPS_PER_S))
+
+
+def k1_split(value, markers, mask, reps=20):
+    """Where the block kernel's time goes, from its C entry at 128 levels:
+    the set-up alone (one level, no step), the set-up and the level updates
+    (no step), and one step of an empty mask (every word idle: the fixed
+    cost of a step).  ms, ms, us."""
+    from microbeseg_torch.kernels import _build
+
+    fn = _build.entry("flood", "flood_block_launch", 8, 7)
+    n, H, W = value.shape
+    out = torch.empty((n, H, W), dtype=torch.int32, device=value.device)
+    scratch = torch.empty((2, n, H, W), dtype=torch.int32,
+                          device=value.device)
+    steps = torch.empty((n,), dtype=torch.int32, device=value.device)
+
+    def run(m, n_levels, inner_steps, cleanup):
+        _build.check(fn(value.data_ptr(), markers.data_ptr(), m.data_ptr(),
+                        out.data_ptr(), scratch[0].data_ptr(),
+                        scratch[1].data_ptr(), steps.data_ptr(), None, n, H,
+                        W, n_levels, inner_steps, 12, cleanup,
+                        _build.stream_ptr(value)), "flood_block")
+
+    empty = torch.zeros_like(mask)
+    empty_ms = cuda_ms(lambda: run(empty, 128, 2, H * W), reps)
+    n_steps = int(steps.max())   # one a level and one of cleanup
+    empty_setup_ms = cuda_ms(lambda: run(empty, 128, 0, 0), reps)
+    setup_ms = cuda_ms(lambda: run(mask, 1, 0, 0), reps)
+    return dict(
+        setup_ms=setup_ms,
+        setup_and_levels_ms=cuda_ms(lambda: run(mask, 128, 0, 0), reps),
+        empty_step_us=(empty_ms - empty_setup_ms) * 1e3 / n_steps)
 
 
 def check_big_kernels(dev, rng, results, exact):
@@ -800,6 +920,9 @@ def driven_segment(engine, frames, th_cell, th_seed, must_launch):
     if launches["sequentialize_components"]:
         raise AssertionError("the general rank relabel ran on the "
                              f"{frames.shape[1]}^2 path")
+    if launches["flood_packed_cluster"]:
+        raise AssertionError("the cluster kernel of K1 ran on the "
+                             f"{frames.shape[1]}^2 path")
     if engine.oom_count:
         raise AssertionError(f"{engine.oom_count} out-of-memory fallbacks")
     if masks.shape != frames.shape or masks.dtype != np.uint16:
@@ -889,6 +1012,11 @@ def main_path(dev, report, model, cpu_model, n_params):
     b16, c16 = engine._predict_raw_dev(chunk)
     post_ms = cuda_ms(lambda: distance_postprocessing(
         b16, c16, th_seed, th_cell, max_seeds=256), 10)
+    # the host's time to enqueue post-processing against the device time of
+    # the kernels it launches: the larger bounds post_ms
+    post = host_and_device(lambda: distance_postprocessing(
+        b16, c16, th_seed, th_cell, max_seeds=256), reps=20)
+    post_device_ms = sum(post["device_us"].values()) / 1e3
     seg_med = statistics.median(seg_s)
     report["main_path"] = dict(
         model="DUNet filters (64, 1024) bn relu conv, bf16 autocast",
@@ -898,12 +1026,17 @@ def main_path(dev, report, model, cpu_model, n_params):
         segment_first_s=first_s, segment_s=seg_s,
         crops_per_s=N_FRAMES / seg_med, forward_ms_per_batch=fwd_ms,
         postprocess_ms_per_batch=post_ms,
+        postprocess_host_ms=post["host_ms"],
+        postprocess_device_ms=post_device_ms,
+        postprocess_device_us=post["device_us"],
         kernel_masks_equal_segment_masks=same_as_segment,
         bf16_vs_f32_rel_err=rel, th_cell=th_cell, th_seed=th_seed,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     print(f"segment: {N_FRAMES} crops of {SIDE}^2 in {seg_med:.4f} s = "
           f"{N_FRAMES / seg_med:.1f} crops/s; forward {fwd_ms:.3f} ms and "
-          f"post-processing {post_ms:.3f} ms per batch of {B}; "
+          f"post-processing {post_ms:.3f} ms per batch of {B} (host enqueue "
+          f"{post['host_ms']:.3f} ms, kernels {post_device_ms:.3f} ms of "
+          f"device time); "
           f"launches {launches}; instances/frame {min(n_inst)}-"
           f"{max(n_inst)}", flush=True)
     return launches, general, (th_cell, th_seed)
@@ -944,7 +1077,7 @@ def big_path(dev, report, model):
     masks, first_s, launches, n_inst = driven_segment(
         engine, frames, th_cell, th_seed,
         ("flood_tiled", "ranked_components"))
-    if launches["flood_packed"]:
+    if launches["flood_packed"] or launches["flood_packed_cluster"]:
         raise AssertionError("the crop flood ran on 2048^2 frames")
     if int(masks.max()) <= 255:
         raise AssertionError(f"no instance id above 255: max {masks.max()}")
@@ -1366,10 +1499,14 @@ def cli_path(dev, report, model, thresholds):
         launches = dict(_build.LAUNCHES)
         single = imread(tmp / "out" / "mask_a_single_channel0.tif")
         stack = imread(tmp / "out" / "mask_b_stack_channel0.tif")
-    # one calibration pass on the first file, then one forward per file
-    if rc != 0 or launches["conv3x3_int8"] != 5 * 3:
-        raise AssertionError(f"CLI: exit {rc}, K5 launches "
-                             f"{launches['conv3x3_int8']}, expected 15")
+    # one calibration pass on the first file, then one forward per file,
+    # and one flood per file on the one-block K1
+    if (rc != 0 or launches["conv3x3_int8"] != 5 * 3
+            or launches["flood_packed"] != 2
+            or launches["flood_packed_cluster"]):
+        raise AssertionError(f"CLI: exit {rc}, launches {launches}, expected "
+                             "15 of conv3x3_int8, 2 of flood_packed and none "
+                             "of flood_packed_cluster")
     if (single.shape != (SIDE, SIDE) or stack.shape != (2, SIDE, SIDE)
             or single.dtype != np.uint16 or stack.dtype != np.uint16):
         raise AssertionError(f"CLI masks {single.shape} {stack.shape}")
@@ -1442,7 +1579,10 @@ def main() -> int:
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{k: v for k, v in r.items()
                        if k.endswith("_2048") or k in (
-                           "shape", "shapes", "host_ms", "device_us")})
+                           "shape", "shapes", "host_ms", "device_us",
+                           "steps_per_image", "us_per_step", "sides",
+                           "setup_ms", "setup_and_levels_ms",
+                           "empty_step_us")})
                for name, r in report["kernels"].items()]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

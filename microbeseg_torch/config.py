@@ -125,6 +125,14 @@ class InferConfig:
     tta: bool = False
 
 
+# Description of the training augmentation pipeline, stored under the
+# sidecar's 'transforms' key as the reference stores the repr of its Compose.
+AUGMENTATION_TRANSFORMS = (
+    "Compose(Flip(p=1.0, D4), Contrast(p=0.45: clahe|stretch|gamma), "
+    "Scaling(p=0.25, 0.85-1.15), Rotate(p=0.25, ±45°), "
+    "Blur(p=0.3, σ 1-2), Noise(p=0.3, σ 1-5%), Normalize([-1,1]))")
+
+
 def read_sidecar(path: Path) -> dict:
     with open(path, encoding="utf-8") as f:
         return json.load(f)

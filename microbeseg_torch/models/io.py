@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from microbeseg_torch.config import (
+    AUGMENTATION_TRANSFORMS,
     TrainConfig,
     read_sidecar,
     train_config_from_sidecar,
@@ -201,8 +202,9 @@ def save_model(model: torch.nn.Module, cfg: TrainConfig,
     sidecar = {
         "architecture": list(cfg.model.architecture),
         "batch_size": cfg.batch_size, "label_type": cfg.label_type,
-        "loss": cfg.loss, "optimizer": cfg.optimizer,
-        "run_name": cfg.run_name, "max_epochs": cfg.max_epochs,
+        "loss": cfg.loss, "num_gpus": cfg.num_devices or 1,
+        "optimizer": cfg.optimizer, "run_name": cfg.run_name,
+        "transforms": AUGMENTATION_TRANSFORMS, "max_epochs": cfg.max_epochs,
         "framework": "microbeseg_torch",
         "compute_dtype": cfg.compute_dtype, "seed": cfg.seed}
     (path_models / f"{cfg.run_name}.json").write_text(

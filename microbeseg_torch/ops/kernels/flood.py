@@ -18,7 +18,9 @@ at the fixed point over the whole mask and leaves nothing to sweep up.
 
 On a CUDA tensor each wrapper launches its kernel (``csrc/flood.cu``,
 ``csrc/flood_frame.cu``) or raises; on a CPU tensor it runs the plain
-version beside it, the same steps in PyTorch.
+version beside it, the same steps in PyTorch.  ``flood_packed`` has two
+kernels, picked by ``flood_packed_route``: one block per image for up to 256
+levels, and an 8-block cluster per image for more.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ BIG_KEY = 0x7FFFFFFF
 _BIG = 3.0e38
 
 MAX_SIDE = 768  # largest side flood_packed takes (flood_tiled beyond)
+BLOCK_MAX_LEVELS = 256  # most levels the one-block kernel takes
 TILED_LABEL_BITS = 24
 _INNER_STEPS = 2  # key-min steps per level of the frame flood, as in JAX
 _MAX_PIXELS = 1 << 30  # the frame kernel indexes pixels with int32
@@ -117,6 +120,24 @@ def flood_packed_plain(value: torch.Tensor, markers: torch.Tensor,
     return out[0] if squeeze else out
 
 
+def flood_packed_route(side: int, n_levels: int, label_bits: int) -> str:
+    """The kernel ``flood_packed`` launches on the card for frames whose
+    larger side is ``side``: ``'block'``, one block per image with its
+    bitplanes in shared memory, for up to ``BLOCK_MAX_LEVELS`` levels (the
+    engine's 128, the boundary method's 2, the threshold grid); else
+    ``'cluster'``, an 8-block cluster per image.  Raises ``ValueError`` for
+    what neither takes: a side above ``MAX_SIDE``, fewer than one level, a
+    key that overflows int32."""
+    if n_levels < 1:
+        raise ValueError(f"flood_packed needs at least one level, got "
+                         f"{n_levels}")
+    _check_packing(n_levels, label_bits)
+    if side > MAX_SIDE:
+        raise ValueError(f"flood_packed takes sides up to {MAX_SIDE}, got "
+                         f"{side}")
+    return "block" if n_levels <= BLOCK_MAX_LEVELS else "cluster"
+
+
 def flood_packed(value: torch.Tensor, markers: torch.Tensor,
                  mask: torch.Tensor, n_levels: int = 128,
                  inner_steps: int = 2, label_bits: int = 12,
@@ -124,42 +145,67 @@ def flood_packed(value: torch.Tensor, markers: torch.Tensor,
                  work_out: torch.Tensor = None) -> torch.Tensor:
     """Batched packed-key flood: value (B, H, W) f32 (lower floods first),
     markers (B, H, W) int32 (< 2**label_bits), mask (B, H, W) bool ->
-    (B, H, W) int32 labels.  CPU tensors run the plain version.
+    (B, H, W) int32 labels.  CPU tensors run the plain version; on the card
+    ``flood_packed_route`` picks the kernel.
 
     Work counts of the kernel run, for bounds on its time: ``steps_out``, an
     optional (B,) int32 CUDA tensor, receives the number of steps run per
     image; to ``work_out``, an optional (B,) int64 CUDA tensor the caller
     zeroes, the kernel adds per image the candidate pixels its steps
-    examined (in the mask, active at the level, still unlabelled)."""
+    examined (in the mask, active at the level, still unlabelled).  Both
+    kernels give the same counts."""
     if value.device.type == "cpu":
         return flood_packed_plain(value, markers, mask, n_levels,
                                   inner_steps, label_bits)
+    return _launch_packed(value, markers, mask, n_levels, inner_steps,
+                          label_bits, steps_out, work_out)
+
+
+def _launch_packed(value, markers, mask, n_levels, inner_steps, label_bits,
+                   steps_out=None, work_out=None, route: str = None):
+    """Launch K1.  ``route`` is None everywhere in the package:
+    ``flood_packed_route`` picks.  'block' or 'cluster' forces a kernel and
+    exists only so that ``chip_smoke.py`` and the CUDA tests can hold and
+    time both kernels at one shape; no library caller passes it."""
     if value.device.type != "cuda":
         raise RuntimeError(f"flood_packed: unsupported device {value.device}")
-    _check_packing(n_levels, label_bits)
     squeeze, value, markers, mask = _as_batch(value, markers, mask)
     B, H, W = value.shape
-    if max(H, W) > MAX_SIDE:
-        raise ValueError(f"flood_packed takes sides up to {MAX_SIDE}, got "
-                         f"{H}x{W}")
+    rule = flood_packed_route(max(H, W), n_levels, label_bits)
+    route = route or rule
+    if route == "block" and rule != "block":
+        raise ValueError(f"the block kernel takes up to {BLOCK_MAX_LEVELS} "
+                         f"levels, got {n_levels}")
     dev = value.device
     value = value.to(torch.float32).contiguous()
     markers = markers.to(dev, torch.int32).contiguous()
     mask = mask.to(dev, torch.bool).contiguous()
     out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-    scratch = torch.empty((3, B, H, W), dtype=torch.int32, device=dev)
     if steps_out is None:
         steps_out = torch.empty((B,), dtype=torch.int32, device=dev)
     _check_work_out(work_out, B, dev)
-    fn = _build.entry("flood", "flood_packed_launch", 9, 7)
-    err = fn(_build.ptr(value), _build.ptr(markers), _build.ptr(mask),
-             _build.ptr(out), _build.ptr(scratch[0]), _build.ptr(scratch[1]),
-             _build.ptr(scratch[2]), _build.ptr(steps_out),
-             None if work_out is None else _build.ptr(work_out), B, H, W,
-             n_levels, inner_steps, label_bits, H * W,
-             _build.stream_ptr(value))
-    _build.check(err, "flood_packed")
-    _build.LAUNCHES["flood_packed"] += 1
+    work = None if work_out is None else _build.ptr(work_out)
+    if route == "block":
+        # the key plane, and the in-mask pixels sorted by level
+        scratch = torch.empty((2, B, H, W), dtype=torch.int32, device=dev)
+        fn = _build.entry("flood", "flood_block_launch", 8, 7)
+        args = (_build.ptr(scratch[0]), _build.ptr(scratch[1]))
+        name = "flood_packed"
+    elif route == "cluster":
+        # the level plane and two key planes (ping-pong)
+        scratch = torch.empty((3, B, H, W), dtype=torch.int32, device=dev)
+        fn = _build.entry("flood", "flood_packed_launch", 9, 7)
+        args = tuple(_build.ptr(scratch[i]) for i in range(3))
+        name = "flood_packed_cluster"
+    else:
+        raise ValueError(f"flood_packed: unknown route {route!r}")
+    with torch.cuda.device(dev):  # the block kernel sets its shared memory
+        err = fn(_build.ptr(value), _build.ptr(markers), _build.ptr(mask),
+                 _build.ptr(out), *args, _build.ptr(steps_out), work, B, H,
+                 W, n_levels, inner_steps, label_bits, H * W,
+                 _build.stream_ptr(value))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
     return out[0] if squeeze else out
 
 

@@ -58,6 +58,94 @@ def test_kernels_match_plain(dev, shape):
             rtol=0, atol=0)
 
 
+def _flood_cases(seed, B, H, W):
+    """(name, value, markers, mask) numpy inputs for K1 on one shape: blobs
+    with their seeds' ids, an empty mask, a full mask with two seeds, every
+    in-mask pixel seeded, and dense speckle seeds (large fronts).  Ids stay
+    below 2**12."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+    cell = np.zeros((B, H, W), np.float32)
+    for b in range(B):
+        for _ in range(max(2, H * W // 2000)):
+            cy, cx = rng.integers(0, H), rng.integers(0, W)
+            cell[b] = np.maximum(cell[b], np.clip(1 - np.sqrt(
+                (yy - cy) ** 2 + (xx - cx) ** 2) / rng.uniform(3, 9), 0, 1))
+    cell += rng.normal(0, 0.02, cell.shape).astype(np.float32)
+    speckle = rng.random((B, H, W)) < 0.1
+    mask = cell > 0.1
+    ids = rng.integers(1, 4096, (B, H, W)).astype(np.int32)
+    blobs = np.where(cell > 0.6, ids, 0)
+    two = np.zeros((B, H, W), np.int32)
+    two[:, 0, 0], two[:, H - 1, W - 1] = 7, 4095
+    dense = rng.random((B, H, W)) < 0.4
+    return [("blobs", -cell, blobs, mask),
+            ("empty", -cell, blobs, np.zeros_like(mask)),
+            ("full", -cell, two, np.ones_like(mask)),
+            ("all_seeded", -cell, np.where(mask, ids, 0), mask),
+            ("speckle", -cell, np.where(dense | speckle, ids, 0), mask)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (16, 256, 256), (4, 64, 64), (4, 128, 128), (2, 320, 320),
+    (2, 512, 512), (1, 768, 768), (3, 30, 46), (2, 12, 700), (2, 9, 7),
+    (3, 1, 300)])
+def test_flood_block_kernel_matches_plain(dev, shape):
+    """K1's one-block kernel against the plain version, exactly, on every
+    bucket side up to 768, odd widths and one-row images; 2 and 128 levels
+    with 12- and 24-bit keys (ids + 5000 for 24 bits) and 256 levels with
+    12-bit keys.  Its step and work counts equal the cluster kernel's."""
+    from microbeseg_torch.ops.kernels import flood
+
+    B = shape[0]
+    for name, value, markers, mask in _flood_cases(sum(shape), *shape):
+        v, m = torch.from_numpy(value).to(dev), torch.from_numpy(mask).to(dev)
+        for n_levels, bits in ((2, 12), (128, 12), (256, 12), (2, 24),
+                               (128, 24)):
+            offset = 5000 if bits == 24 else 0
+            mk = torch.from_numpy(np.where(markers > 0, markers + offset,
+                                           0)).to(dev)
+            want = flood.flood_packed_plain(v, mk, m, n_levels,
+                                            label_bits=bits)
+            counts = {}
+            for route in ("block", "cluster"):
+                steps = torch.empty((B,), dtype=torch.int32, device=dev)
+                work = torch.zeros((B,), dtype=torch.int64, device=dev)
+                got = flood._launch_packed(v, mk, m, n_levels, 2, bits, steps,
+                                           work, route=route)
+                assert torch.equal(got, want), (name, n_levels, bits, route)
+                counts[route] = steps.tolist(), work.tolist()
+            assert counts["block"] == counts["cluster"], (name, n_levels,
+                                                          bits)
+
+
+@pytest.mark.cuda
+def test_flood_packed_takes_the_block_kernel_up_to_256_levels(dev):
+    """The wrapper's shape rule on the card: up to 256 levels launch the
+    one-block kernel, more the cluster kernel; both equal the plain
+    version.  One image without a batch axis."""
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.ops.kernels import flood
+
+    (_, value, markers, mask), *_ = _flood_cases(3, 2, 40, 72)
+    v, mk, m = (torch.from_numpy(a).to(dev) for a in (value, markers, mask))
+    for n_levels, route in ((128, "flood_packed"), (256, "flood_packed"),
+                            (257, "flood_packed_cluster"),
+                            (4096, "flood_packed_cluster")):
+        before = dict(_build.LAUNCHES)
+        got = flood.flood_packed(v, mk, m, n_levels)
+        assert {k: _build.LAUNCHES[k] - before[k]
+                for k in ("flood_packed", "flood_packed_cluster")} == {
+            "flood_packed": int(route == "flood_packed"),
+            "flood_packed_cluster": int(route != "flood_packed")}
+        assert torch.equal(got, flood.flood_packed_plain(v, mk, m, n_levels))
+    assert torch.equal(flood.flood_packed(v[0], mk[0], m[0]),
+                       flood.flood_packed_plain(v[0], mk[0], m[0]))
+    with pytest.raises(ValueError, match="256 levels"):
+        flood._launch_packed(v, mk, m, 300, 2, 12, route="block")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(16, 256, 256), (1, 1000, 1400),
                                    (3, 48, 816), (2, 9, 7)])

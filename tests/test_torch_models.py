@@ -212,3 +212,34 @@ def test_write_msgpack_round_trips():
     plain = {k: obj[k] for k in "abcde"}
     assert msgpack.unpackb(write_msgpack(plain), raw=False,
                            strict_map_key=False) == plain
+
+
+@pytest.mark.parametrize("num_devices", [None, 4])
+def test_sidecar_matches_jax_write_sidecar(tmp_path, num_devices):
+    """``save_model``'s sidecar has the keys of JAX's ``write_sidecar`` on
+    the same ``TrainConfig``, with the same values apart from the writing
+    package's name: ``num_gpus`` (``num_devices or 1``) and ``transforms``
+    included."""
+    import json
+
+    from microbeseg_tpu.config import TrainConfig as JTrainConfig
+    from microbeseg_tpu.config import write_sidecar
+    from microbeseg_torch.config import TrainConfig
+    from microbeseg_torch.models.io import save_model
+
+    arch = dict(unet_type="DU", normalization="bn", filters=(8, 16))
+    kw = dict(label_type="distance", run_name="side_01", batch_size=6,
+              num_devices=num_devices)
+    save_model(build_unet(ModelConfig(**arch)),
+               TrainConfig(model=ModelConfig(**arch), **kw), tmp_path / "port")
+    (tmp_path / "jax").mkdir()
+    write_sidecar(JTrainConfig(model=JModelConfig(**arch), **kw),
+                  tmp_path / "jax")
+    ours = json.loads((tmp_path / "port" / "side_01.json").read_text())
+    ref = json.loads((tmp_path / "jax" / "side_01.json").read_text())
+    assert list(ours) == list(ref)
+    assert ours["num_gpus"] == ref["num_gpus"] == (num_devices or 1)
+    assert ours["transforms"] == ref["transforms"]
+    assert ours.pop("framework") == "microbeseg_torch"
+    assert ref.pop("framework") == "microbeseg_tpu"
+    assert ours == ref

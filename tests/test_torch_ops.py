@@ -80,6 +80,28 @@ class TestFloodK1:
         assert set(out.unique().tolist()) == {0, 5000}
         np.testing.assert_array_equal((out > 0).numpy(), (big > 0).numpy())
 
+    @pytest.mark.parametrize("side,n_levels,label_bits,kernel", [
+        (256, 128, 12, "block"), (256, 2, 12, "block"), (64, 1, 12, "block"),
+        (768, 256, 12, "block"), (768, 128, 24, "block"), (1, 2, 24, "block"),
+        (256, 257, 12, "cluster"), (768, 1 << 19, 12, "cluster")])
+    def test_route_rule(self, side, n_levels, label_bits, kernel):
+        """The kernel ``flood_packed`` takes on the card, by frame side,
+        levels and label bits: one block per image up to 256 levels, the
+        cluster kernel beyond."""
+        from microbeseg_torch.ops.kernels.flood import flood_packed_route
+
+        assert flood_packed_route(side, n_levels, label_bits) == kernel
+
+    @pytest.mark.parametrize("side,n_levels,label_bits,match", [
+        (769, 128, 12, "sides up to 768"), (256, 0, 12, "at least one"),
+        (256, 256, 24, "packed key overflow"),
+        (256, (1 << 19) + 1, 12, "packed key overflow")])
+    def test_route_rule_refusals(self, side, n_levels, label_bits, match):
+        from microbeseg_torch.ops.kernels.flood import flood_packed_route
+
+        with pytest.raises(ValueError, match=match):
+            flood_packed_route(side, n_levels, label_bits)
+
     def test_unpackable_labels_take_watershed_on_cpu_only(self):
         """Labels the packed key cannot carry take the 'flood' watershed on
         the CPU; on any other device they raise (no kernel there yet)."""
