@@ -16,9 +16,14 @@
    (64, 128, 320, 512, 768); K3 connected components, K4 rank relabel and
    ``ranked_components`` (K4 for K3's ids: ranks straight from a mask, the
    entry the main paths call) at 16 x 256^2 on seeded blob fields, a speckle
-   field, an empty and a full mask; K2, the frame flood, with markers above
-   4095 on 2 x 1024^2, 1000 x 1400 and one 2048^2 field; K3, K4 and
-   ``ranked_components`` again on one 2048^2 field and a 48 x 816 strip.
+   field, an empty and a full mask; K2, the frame flood, on both of its
+   kernels (the front kernel that ``flood_tiled`` launches, and the first
+   port's whole-frame sweep), with equal step
+   and work counts and markers above 4095, on 2 x 1024^2 (also 2 levels),
+   1000 x 1400 (also 2 levels), one 4096^2 and one 2048^2 field, timed in
+   turns, with the front kernel's set-up and an empty mask's step timed
+   apart; K3, K4 and ``ranked_components`` again on one 2048^2 field and a
+   48 x 816 strip.
    K4's yardstick is the same function in PyTorch calls (root ranks, then a
    gather), with the bare gather beside it; ``ranked_components`` is timed in
    turns with K3 alone and with K3 followed by that library route.  K5, the
@@ -37,7 +42,8 @@
    ``InferenceEngine.segment`` on 48 uint16 frames of 256^2 (3 batches of
    16), with every launch counter set to 0 just before and read just after.
    Checks that K1's one-block kernel and ``ranked_components`` launched and
-   K1's cluster kernel and the general K4 did not, that no out-of-memory fallback was taken, that the masks hold
+   K1's cluster kernel, the first port's K2 sweep and the general K4 did
+   not, that no out-of-memory fallback was taken, that the masks hold
    instances, that the plain post-processing on the card gives the same
    masks from the same predictions, that post-processing with K3 followed by
    the general K4 as its labelling function gives them too (counters set to
@@ -48,8 +54,9 @@
 5. Large-frame path: the same model through ``segment`` with
    ``InferConfig(use_tiling=True)`` (tile 512, overlap 64: 25 tiles a
    frame, 8 a forward call) on 3 uint16 frames of 2048^2 with ~900 blobs
-   each, counters set to 0 before and read after.  Checks that K2 and
-   ``ranked_components`` launched, no out-of-memory fallback, instances and ids above 255,
+   each, counters set to 0 before and read after.  Checks that K2's front
+   kernel and ``ranked_components`` launched (and not the first port's K2
+   sweep), no out-of-memory fallback, instances and ids above 255,
    and that kernel post-processing equals plain post-processing on one
    whole stitched 2048^2 frame.  Times ``segment`` (frames/s, Mpx/s) and its
    forward, stitching and post-processing parts.
@@ -106,6 +113,7 @@ import torch
 
 B, SIDE, N_FRAMES = 16, 256, 48
 BIG, N_BIG, BIG_BLOBS = 2048, 3, 900
+BIG4, BIG4_BLOBS = 4096, 3600   # K2's largest check: 4x the 2048^2 field
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 # H100 SXM int32 rate: 132 SMs x 64 results per clock for 32-bit integer
 # add, compare, min and max (CUDA C++ Programming Guide, arithmetic
@@ -419,7 +427,7 @@ def check_kernels(dev, report):
     check_big_kernels(dev, rng, results, exact)
     check_matmul(dev, results)
     for r in results.values():
-        for suffix in ("", "_2048"):
+        for suffix in ("", "_2048", "_4096"):
             if "bytes" + suffix not in r:
                 continue
             t_bytes = r.pop("bytes" + suffix) / HBM_BYTES_PER_S * 1e3
@@ -445,6 +453,17 @@ def check_kernels(dev, report):
               f"{t['steps_per_image']:.1f} steps, "
               f"{t['candidates_per_image']:.1f} candidates per image",
               flush=True)
+    k2 = results["flood_tiled"]
+    for size, t in k2["sizes"].items():
+        print(f"K2 at {size}: front kernel {t['front_ms']:.5f} ms, first "
+              f"port's sweep {t['grid_ms']:.5f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}); {t['steps']:.1f} "
+              f"steps, {t['front_ms'] * 1e3 / t['steps']:.4f} us a step "
+              f"(sweep {t['grid_ms'] * 1e3 / t['steps']:.4f}), "
+              f"{t['candidates']} candidates", flush=True)
+    print(f"K2 at {BIG}^2: planes in PyTorch {k2['planes_ms']:.5f} ms; front "
+          f"kernel set-up {k2['setup_ms']:.5f} ms, a step of an empty mask "
+          f"{k2['empty_step_us']:.4f} us", flush=True)
     for name, r in results.items():
         print(f"{name}: {r['ms']:.5f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
@@ -617,39 +636,42 @@ def check_big_kernels(dev, rng, results, exact):
         # ids above 4095, so the 24-bit label field is exercised
         return cell, torch.where(ranks > 0, ranks + 5000, 0), cell > 0.1
 
-    # K2 exact: two frames per call, a non-multiple size, and 2 levels (the
-    # boundary method's flood)
+    # K2, both kernels: two frames per call, a size 32 does not divide, and 2 levels (the boundary
+    # method's flood); then one 4096^2 and one 2048^2 field, all in turns
+    sizes = {}
     for n, shape, n_blobs in ((2, (1024, 1024), 230), (1, (1000, 1400), 300)):
         cell, markers, mask = fields(n, shape, n_blobs)
-        for n_levels in (128, 2):
-            exact("K2", flood.flood_tiled(-cell, markers, mask, n_levels),
-                  flood.flood_tiled_plain(-cell, markers, mask, n_levels))
-
-    # one 2048^2 frame: K2, K3 and K4 exact and timed
+        k2_forms(flood, -cell, markers, mask, 2, reps=0)
+        sizes["x".join(map(str, (n, *shape)))] = k2_forms(
+            flood, -cell, markers, mask, 128, reps=10)
+    cell, markers, mask = fields(1, (BIG4, BIG4), BIG4_BLOBS)
+    sizes[f"1x{BIG4}x{BIG4}"] = k4 = k2_forms(flood, -cell, markers, mask,
+                                                128, reps=5)
     cell, markers, mask = fields(1, (BIG, BIG), BIG_BLOBS)
-    got = flood.flood_tiled(-cell, markers, mask)
-    exact("K2", got, flood.flood_tiled_plain(-cell, markers, mask))
-    if int(got.max()) <= 5000:
+    sizes[f"1x{BIG}x{BIG}"] = k2 = k2_forms(flood, -cell, markers, mask,
+                                              128, reps=10)
+    if int(flood.flood_tiled(-cell, markers, mask).max()) <= 5000:
         raise AssertionError("K2: no label above 12 bits came through")
-    steps = torch.empty((1,), dtype=torch.int32, device=dev)
-    work = torch.zeros((1,), dtype=torch.int64, device=dev)
-    flood.flood_tiled(-cell, markers, mask, steps_out=steps, work_out=work)
-    n_steps, n_work = int(steps.item()), int(work.item())
-    in_mask = int(mask.sum().item())
-    if not 0 < n_work <= n_steps * in_mask:
-        raise AssertionError(f"K2 work count {n_work} out of range")
-    k2_ms = cuda_ms(lambda: flood.flood_tiled(-cell, markers, mask), 10)
-    k2_plain = cuda_ms(lambda: flood.flood_tiled_plain(-cell, markers, mask),
-                       1, warmup=1)
     px = BIG * BIG
     # the function reads value, markers and mask and writes labels: 13 B a
     # pixel; operations as for K1, 6 per candidate pixel and step
-    results["flood_tiled"] = dict(
-        source="microbeseg_torch/csrc/flood_frame.cu",
-        replaces="microbeseg_tpu/ops/pallas/flood.py:264",
-        max_abs_err=0, ms=k2_ms, plain_ms=k2_plain, library_ms=None,
-        bytes=px * (4 + 4 + 1 + 4), ops=n_work * 6, shape=[1, BIG, BIG],
-        steps=n_steps, candidates=n_work, in_mask_share=in_mask / px)
+    for name, form in (("flood_tiled", "front_ms"),
+                       ("flood_tiled_grid", "grid_ms")):
+        results[name] = dict(
+            source="microbeseg_torch/csrc/flood_frame.cu",
+            replaces="microbeseg_tpu/ops/pallas/flood.py:264",
+            max_abs_err=0, ms=k2[form], plain_ms=k2["plain_ms"],
+            library_ms=None, bytes=px * 13, ops=k2["candidates"] * 6,
+            shape=[1, BIG, BIG], steps=k2["steps"],
+            candidates=k2["candidates"],
+            us_per_step=k2[form] * 1e3 / k2["steps"],
+            in_mask_share=k2["in_mask_share"],
+            ms_4096=k4[form], plain_ms_4096=k4["plain_ms"],
+            bytes_4096=BIG4 * BIG4 * 13, ops_4096=k4["candidates"] * 6,
+            steps_4096=k4["steps"],
+            us_per_step_4096=k4[form] * 1e3 / k4["steps"])
+    results["flood_tiled"].update(
+        sizes=sizes, **k2_split(flood, -cell, markers, mask))
 
     seeds_bin = cell > 0.6
     speckle = torch.from_numpy(rng.random((1, BIG, BIG)) < 0.35).to(dev)
@@ -687,6 +709,91 @@ def check_big_kernels(dev, rng, results, exact):
         bytes_2048=px * (1 + 4), ops_2048=px * 8,
         **{k + "_2048": v
            for k, v in ranked_times(seeds_bin, labels, 20, 1).items()})
+
+
+K2_ROUTES = ("front", "grid")
+
+
+def k2_forms(flood, value, markers, mask, n_levels, reps):
+    """K2 on one input: the front kernel and the first port's whole-frame
+    sweep, each exactly equal to the plain version, with the same step and
+    work counts per frame; with ``reps``, their times in turns (front,
+    sweep, sweep, front; the lower of each pair) and the plain version's."""
+    n = value.shape[0]
+    want = flood.flood_tiled_plain(value, markers, mask, n_levels)
+    counts = {}
+    for route in K2_ROUTES:
+        steps = torch.empty((n,), dtype=torch.int32, device=value.device)
+        work = torch.zeros((n,), dtype=torch.int64, device=value.device)
+        got = flood._launch_tiled(value, markers, mask, n_levels, steps,
+                                  work, route=route)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"K2 {route} differs from plain at {tuple(value.shape)}, "
+                f"{n_levels} levels, on {int((got != want).sum())} px")
+        counts[route] = steps.tolist(), work.tolist()
+    if counts["front"] != counts["grid"]:
+        raise AssertionError(f"K2 counts differ at {tuple(value.shape)}: "
+                             f"{counts}")
+    steps, work = counts["front"]
+    n_work, in_mask = sum(work), int(mask.sum())
+    if not 0 < n_work <= max(steps) * in_mask:
+        raise AssertionError(f"K2 work count {n_work} out of range")
+    if not reps:
+        return None
+    times = {route: [] for route in K2_ROUTES}
+    for route in K2_ROUTES + K2_ROUTES[::-1]:
+        times[route].append(cuda_ms(lambda: flood._launch_tiled(
+            value, markers, mask, n_levels, route=route), reps))
+    return dict(
+        shape=list(value.shape), front_ms=min(times["front"]),
+        grid_ms=min(times["grid"]),
+        plain_ms=cuda_ms(lambda: flood.flood_tiled_plain(
+            value, markers, mask, n_levels), 1, warmup=1),
+        steps=sum(steps) / n, candidates=n_work,
+        in_mask_share=in_mask / value.numel(),
+        **bound(value.numel() * 13, n_work * 6, INT_OPS_PER_S))
+
+
+def k2_split(flood, value, markers, mask, reps=20):
+    """Where a ``flood_tiled`` call's time goes on one frame at 128 levels:
+    building its two planes in PyTorch (``packed_planes``), and, from the
+    front kernel's C entry, the set-up alone (bitplanes, sort, one grid
+    barrier, labels out; no step; the planes prebuilt) and one step of an
+    empty mask (every word idle: the fixed cost of a barrier-separated
+    step).  ms, ms, us."""
+    from microbeseg_torch.kernels import _build
+
+    fn = _build.entry("flood_frame", "flood_front_launch", 8, 6)
+    n, H, W = value.shape
+    words = H * ((W + 31) // 32)
+    dev = value.device
+    bitplanes = torch.empty((4, words), dtype=torch.int32, device=dev)
+    order = torch.empty((words * 32,), dtype=torch.int32, device=dev)
+    flags = torch.zeros((n, 3), dtype=torch.int32, device=dev)
+    out = torch.empty((n, H, W), dtype=torch.int32, device=dev)
+    steps = torch.empty((n,), dtype=torch.int32, device=dev)
+    # no key changes in these runs: each seeded plane serves them all
+    planes = {m: flood.packed_planes(value, markers, mask if m else
+                                     torch.zeros_like(mask), 128)
+              for m in (True, False)}
+
+    def run(full, n_levels, inner_steps, cleanup):
+        qs, key0 = planes[full]
+        flags.zero_()
+        _build.check(fn(qs.data_ptr(), key0.data_ptr(), out.data_ptr(),
+                        bitplanes.data_ptr(), order.data_ptr(),
+                        flags.data_ptr(), steps.data_ptr(), None, n, H, W,
+                        n_levels, inner_steps, cleanup,
+                        _build.stream_ptr(value)), "flood_front")
+
+    empty_ms = cuda_ms(lambda: run(False, 128, 2, H * W), reps)
+    n_steps = int(steps.max())   # one a level and one of cleanup
+    empty_setup_ms = cuda_ms(lambda: run(False, 1, 0, 0), reps)
+    return dict(planes_ms=cuda_ms(lambda: flood.packed_planes(
+                    value, markers, mask, 128), reps),
+                setup_ms=cuda_ms(lambda: run(True, 1, 0, 0), reps),
+                empty_step_us=(empty_ms - empty_setup_ms) * 1e3 / n_steps)
 
 
 def bound(n_bytes, n_ops, ops_per_s):
@@ -922,6 +1029,9 @@ def driven_segment(engine, frames, th_cell, th_seed, must_launch):
                              f"{frames.shape[1]}^2 path")
     if launches["flood_packed_cluster"]:
         raise AssertionError("the cluster kernel of K1 ran on the "
+                             f"{frames.shape[1]}^2 path")
+    if launches["flood_tiled_grid"]:
+        raise AssertionError("the first port's K2 sweep ran on the "
                              f"{frames.shape[1]}^2 path")
     if engine.oom_count:
         raise AssertionError(f"{engine.oom_count} out-of-memory fallbacks")
@@ -1578,11 +1688,12 @@ def main() -> int:
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{k: v for k, v in r.items()
-                       if k.endswith("_2048") or k in (
+                       if k.endswith(("_2048", "_4096")) or k in (
                            "shape", "shapes", "host_ms", "device_us",
                            "steps_per_image", "us_per_step", "sides",
                            "setup_ms", "setup_and_levels_ms",
-                           "empty_step_us")})
+                           "empty_step_us", "steps", "sizes",
+                           "planes_ms")})
                for name, r in report["kernels"].items()]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

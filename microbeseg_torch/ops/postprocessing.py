@@ -19,7 +19,7 @@ import torch
 from microbeseg_torch.ops import cc
 from microbeseg_torch.ops.filters import gaussian_filter
 from microbeseg_torch.ops.kernels import flood
-from microbeseg_torch.ops.watershed import watershed
+from microbeseg_torch.ops.watershed import watershed, watershed_fast
 
 _MAX_PACKED = (1 << 24) - 1
 
@@ -70,7 +70,8 @@ def distance_postprocessing(border_prediction: torch.Tensor,
     flood on CUDA, the 'flood' watershed on the CPU (as the JAX package
     picks the Pallas flood on accelerators and the XLA flood on the CPU);
     'flood' = the quantised priority flood of ``ops/watershed``; 'pallas' =
-    the packed-key flood (kernel K1), named as in the JAX package."""
+    the packed-key flood (kernel K1), named as in the JAX package; 'fast' =
+    ``watershed_fast``, drainage labelling and a flood cleanup."""
     return _distance_postprocessing(border_prediction, cell_prediction,
                                     th_seed, th_cell, max_seeds, n_levels,
                                     method)
@@ -119,7 +120,7 @@ def _resolve_method(method: str, dev: torch.device, max_seeds: int) -> str:
             f"max_seeds {max_seeds} does not fit the packed key; the card "
             "has no kernel for the watershed flood yet (ROADMAP Queue 1 "
             "item 13)")
-    if method not in ("flood", "pallas"):
+    if method not in ("flood", "pallas", "fast"):
         raise ValueError(f"unknown post-processing method {method!r}")
     return method
 
@@ -133,6 +134,8 @@ def _flood(method, value, seeds, mask, n_levels, max_seeds, flood_fn):
                 f"{max_seeds} (use method='auto'/'flood')")
         labels = flood_fn(value, seeds, mask, n_levels=n_levels,
                           max_label=max_seeds)
+    elif method == "fast":
+        labels = watershed_fast(value, seeds, mask)
     else:
         labels = watershed(value, seeds, mask, n_levels=n_levels)
     return labels.to(torch.uint16)

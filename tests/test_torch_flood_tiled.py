@@ -51,17 +51,35 @@ def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
-@pytest.mark.parametrize("n_levels", [8, 128])
-def test_planes_flood_bit_exact_vs_pallas_interpret(n_levels):
-    """One (1, 128, 128) window whose outer ring is outside the mask (the
-    TPU kernel's contract), markers above 4095."""
-    rng = np.random.default_rng(7)
-    cell, seeds, mask = _blob_field(rng, 128, n_blobs=8)
-    cell = cell + rng.normal(0, 0.02, cell.shape).astype(np.float32)
+def _ringed_field(shape):
+    """Discs of radius 3 to 9 at random centres, one per 400 pixels, with
+    noise; the mask's outer ring is cleared (the TPU kernel's contract) and
+    every seed pixel draws its own marker above 4095."""
+    H, W = shape
+    rng = np.random.default_rng(H + W)
+    yy, xx = np.mgrid[0:H, 0:W]
+    cell = np.zeros(shape, np.float32)
+    for _ in range(H * W // 400):
+        cy, cx = rng.integers(0, H), rng.integers(0, W)
+        cell = np.maximum(cell, np.clip(1 - np.sqrt(
+            (yy - cy) ** 2 + (xx - cx) ** 2) / rng.uniform(3, 9), 0, 1))
+    cell += rng.normal(0, 0.02, shape).astype(np.float32)
     mask = cell > 0.1
     mask[[0, -1], :] = False
     mask[:, [0, -1]] = False
-    markers = np.where(seeds > 0, seeds + 5000, 0).astype(np.int32)
+    markers = np.where(cell > 0.6, rng.integers(5000, 9000, shape), 0)
+    return cell, markers.astype(np.int32), mask
+
+
+@pytest.mark.parametrize("n_levels, shape", [
+    (8, (128, 128)), (128, (128, 128)), (128, (800, 13)), (128, (769, 40))],
+    ids=["8", "128", "800x13", "769x40"])
+def test_planes_flood_bit_exact_vs_pallas_interpret(n_levels, shape):
+    """One ring-guarded window, markers above 4095: a 128 x 128 frame, and
+    the frames whose bitplane words the card's front kernel has to split
+    mid-row: an 800 x 13 strip and a 769 x 40 frame (one word and two words
+    a row)."""
+    cell, markers, mask = _ringed_field(shape)
     value, markers_t, mask_t = _t(-cell[None], markers[None], mask[None])
     qs, key0 = flood.packed_planes(value, markers_t, mask_t, n_levels)
     assert int(qs[0, 0, 0]) == flood.BIG_KEY

@@ -203,6 +203,75 @@ def test_frame_flood_matches_plain(dev, shape):
         rtol=0, atol=0)
 
 
+def _frame_cases(seed, B, H, W):
+    """(name, value, markers, mask) numpy inputs for K2 on one shape, as
+    ``_flood_cases`` but with each cone drawn in its own window (so 2048^2
+    takes no longer than a small frame) and ids above 4095: blobs, an empty
+    mask, a full mask with two seeds, every in-mask pixel seeded, and dense
+    speckle seeds."""
+    rng = np.random.default_rng(seed)
+    cell = np.zeros((B, H, W), np.float32)
+    for b in range(B):
+        for _ in range(max(2, H * W // 2000)):
+            cy, cx = int(rng.integers(0, H)), int(rng.integers(0, W))
+            r = rng.uniform(3, 9)
+            y0, y1 = max(cy - 9, 0), min(cy + 10, H)
+            x0, x1 = max(cx - 9, 0), min(cx + 10, W)
+            yy, xx = np.mgrid[y0:y1, x0:x1]
+            win = cell[b, y0:y1, x0:x1]
+            np.maximum(win, np.clip(1 - np.sqrt(
+                (yy - cy) ** 2 + (xx - cx) ** 2) / r, 0, 1), out=win)
+    cell += rng.normal(0, 0.02, cell.shape).astype(np.float32)
+    speckle = rng.random((B, H, W)) < 0.1
+    mask = cell > 0.1
+    ids = rng.integers(4096, 1 << 20, (B, H, W)).astype(np.int32)
+    blobs = np.where(cell > 0.6, ids, 0)
+    two = np.zeros((B, H, W), np.int32)
+    two[:, 0, 0], two[:, H - 1, W - 1] = 7, (1 << 24) - 2
+    dense = rng.random((B, H, W)) < 0.4
+    return [("blobs", -cell, blobs, mask),
+            ("empty", -cell, blobs, np.zeros_like(mask)),
+            ("full", -cell, two, np.ones_like(mask)),
+            ("all_seeded", -cell, np.where(mask, ids, 0), mask),
+            ("speckle", -cell, np.where(dense | speckle, ids, 0), mask)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1024, 1024), (1, 1000, 1400),
+                                   (1, 769, 1), (1, 800, 13),
+                                   (1, 2048, 2048)])
+def test_frame_front_kernel_matches_plain(dev, shape):
+    """K2's front kernel against the plain version, exactly, with its step
+    and work counts equal to the first port's whole-frame sweep: two frames
+    a call, a width that 32 does not divide, one- and 13-pixel-wide strips
+    (word ranges that start mid-row, blocks with no word), 2048^2; five
+    mask and seed cases, 128 and 2 levels, ids above 4095 up to 2^24 - 2."""
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.ops.kernels import flood
+
+    B = shape[0]
+    for name, value, markers, mask in _frame_cases(sum(shape), *shape):
+        v, mk, m = (torch.from_numpy(a).to(dev)
+                    for a in (value, markers, mask))
+        for n_levels in (128, 2):
+            want = flood.flood_tiled_plain(v, mk, m, n_levels)
+            counts = {}
+            for route in ("front", "grid"):
+                steps = torch.empty((B,), dtype=torch.int32, device=dev)
+                work = torch.zeros((B,), dtype=torch.int64, device=dev)
+                got = flood._launch_tiled(v, mk, m, n_levels, steps, work,
+                                          route=route)
+                assert torch.equal(got, want), (name, n_levels, route)
+                counts[route] = steps.tolist(), work.tolist()
+            assert counts["front"] == counts["grid"], (name, n_levels)
+    # flood_tiled takes the front kernel
+    before = dict(_build.LAUNCHES)
+    flood.flood_tiled(v, mk, m)
+    assert {k: _build.LAUNCHES[k] - before[k]
+            for k in ("flood_tiled", "flood_tiled_grid")} == {
+        "flood_tiled": 1, "flood_tiled_grid": 0}
+
+
 def bf16_tolerance(a, b):
     """Bound on |kernel - plain| for the bf16 product: both round a float32
     sum to bfloat16, so they differ by at most one bfloat16 step of the
