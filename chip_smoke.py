@@ -86,12 +86,34 @@
    folder of two TIFFs, from a checkpoint of the seeded model that
    ``save_model`` wrote; its masks equal the engine's on the same files,
    and it launched K1's one-block kernel once per file.
+9. Evaluation: ``Evaluator`` (on the card) from a checkpoint of the seeded
+   model on ``data/real_glutamicum`` frames 40-49 and on
+   ``data/real_wt/test`` (two frames of other shapes), with a 4 x 2
+   threshold grid taken from the model's own fields, one refine round, the
+   extra metrics and the raw maps saved; a boundary U-Net on the second set;
+   ``cli.evaluate`` once.  Checks that K1's one-block kernel and
+   ``ranked_components`` launched, that not every mask is empty, that every
+   mask written equals the plain post-processing of the raw maps saved
+   beside it, that every slot of the 8-pair grid batch, run again with the
+   kernels on each saved raw map, equals the plain post-processing of that
+   slot alone, and that ``scores.csv`` equals the port's metrics recomputed
+   on the written masks.  Times each evaluation (ms a frame, a frame and
+   grid point) and prints scipy's version; with ``--profile-eval`` it runs
+   the first evaluation once more under cProfile for host seconds by stage.
+10. Label generation: ``create_labels(path, "distance")`` on the card over
+   the 50 masks of ``data/real_glutamicum`` (train 0-39, val 40-49), then
+   every label type on 4 masks, each card result against the CPU's
+   (integer types exactly, float types within 1e-5).  Checks that K3
+   (``connected_components``, the gap step) launched.  Times label
+   generation a mask, and K3 alone on the gap mask the path gives it
+   (1 x 256^2) beside its plain version and bound; these become K3's times
+   in the kernel line (the 16 x 256^2 ones stay under ``*_b16``).
 
 The next-to-last line of stdout is a JSON object with one entry per kernel.
 Its ``launches`` are those of the full-width paths' own runs (steps 4, 5, 7
-without the narrow model, and 8); what the two side runs launched (K3 and the
-general K4 as the labelling function in step 4, the narrow model in step 7)
-stands apart as ``side_run_launches``.  Each wrapper's host enqueue time and
+without the narrow model, 8, 9 and 10); what the two side runs launched
+(K3 and the general K4 as the labelling function in step 4, the narrow
+model in step 7) stands apart as ``side_run_launches``.  Each wrapper's host enqueue time and
 the device time of every kernel it launches (``torch.profiler``) stand under
 ``host_ms`` and ``device_us``.  The last line is ``{"ok": true, "device":
 {...}}``.  Any failure raises and
@@ -101,7 +123,9 @@ exits non-zero before the result lines.  Without CUDA it exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -988,12 +1012,13 @@ def plain_kernels():
     return dict(label_fn=cc.ranked_components_plain, flood_fn=plain_flood)
 
 
-def field_thresholds(engine, warm):
-    """(th_cell, th_seed) from the fields of held-out frames: random weights
-    have no trained scale.  The background is one flat level (the median)
-    and the blobs rise above it; the mask takes the top 80% of that rise,
-    the seeds the top 50% of the seed field's rise."""
-    border_w, cell_w = engine.predict_raw(warm)
+def field_levels(engine, frames, cell_fracs, seed_fracs):
+    """Threshold levels from the fields of ``frames``: random weights have
+    no trained scale.  The background is one flat level (the median) and
+    the blobs rise above it; each fraction f gives the level f of the way
+    up that rise, of the cell field and of the seed field (cell minus
+    borders) -> (cell levels, seed levels)."""
+    border_w, cell_w = engine.predict_raw(frames)
     if not (np.isfinite(border_w).all() and np.isfinite(cell_w).all()):
         raise AssertionError("non-finite predictions")
     borders = np.tan(np.clip(border_w, 0, 1) ** 2)
@@ -1003,7 +1028,15 @@ def field_thresholds(engine, warm):
         bg, top = np.median(field), np.quantile(field, 0.995)
         return float(bg + frac * (top - bg))
 
-    return level(cell_w, 0.2), level(cell_w - borders, 0.5)
+    return ([level(cell_w, f) for f in cell_fracs],
+            [level(cell_w - borders, f) for f in seed_fracs])
+
+
+def field_thresholds(engine, warm):
+    """(th_cell, th_seed) from held-out frames: the mask takes the top 80%
+    of the cell field's rise, the seeds the top 50% of the seed field's."""
+    (th_cell,), (th_seed,) = field_levels(engine, warm, (0.2,), (0.5,))
+    return th_cell, th_seed
 
 
 def driven_segment(engine, frames, th_cell, th_seed, must_launch):
@@ -1639,10 +1672,400 @@ def cli_path(dev, report, model, thresholds):
     return launches
 
 
+
+REAL = Path(__file__).resolve().parent / "data"
+
+
+def test_set(root, src, ids):
+    """``root/test`` with the images and masks ``src/img_XX.tif``,
+    ``src/mask_XX.tif`` of ``ids``."""
+    import shutil
+
+    (root / "test").mkdir(parents=True)
+    for i in ids:
+        for kind in ("img", "mask"):
+            shutil.copy(src / f"{kind}_{i:02d}.tif",
+                        root / "test" / f"{kind}_{i:02d}.tif")
+    return root
+
+
+def held_against_plain(out_dir, label_type, th_cell=0.0, th_seed=0.0):
+    """The masks an evaluation wrote equal the plain post-processing of the
+    raw maps it saved beside them, and are not all empty; -> instances per
+    frame."""
+    from microbeseg_torch.ops.postprocessing import (
+        _boundary_postprocessing, _distance_postprocessing)
+    from microbeseg_torch.utils.tiff import imread
+
+    n_inst = []
+    for mask_path in sorted(out_dir.glob("mask*.tif")):
+        raw = torch.from_numpy(imread(out_dir / mask_path.name.replace(
+            "mask", "raw"))).cuda()
+        if label_type == "distance":
+            plain = _distance_postprocessing(
+                raw[1], raw[0], th_seed, th_cell, max_seeds=256,
+                **plain_kernels())
+        else:
+            plain = _boundary_postprocessing(raw.movedim(0, -1),
+                                             max_seeds=256, **plain_kernels())
+        mask = imread(mask_path)
+        if not np.array_equal(mask, plain.cpu().numpy()):
+            raise AssertionError(f"evaluation mask {mask_path.name} differs "
+                                 "from the plain post-processing of its raw "
+                                 "maps")
+        n_inst.append(len(np.unique(mask)) - 1)
+    if not n_inst or max(n_inst) < 1:
+        raise AssertionError(f"{label_type} evaluation: every mask is empty")
+    return n_inst
+
+
+def scores_recomputed(out_dir, gt_dir, cfg):
+    """``scores.csv`` equals the port's metrics on the written masks: the
+    AJI+ column as it reads after one pass through pandas' float parser
+    (the extra columns' rewrite), the extra columns as written."""
+    import csv
+
+    from microbeseg_torch.evaluation.evaluator import _pandas_float
+    from microbeseg_torch.evaluation.metrics import (
+        get_fast_aji, get_fast_aji_plus, get_fast_dice_2, get_fast_pq,
+        remap_label)
+    from microbeseg_torch.utils.image import border_correction
+    from microbeseg_torch.utils.tiff import imread
+
+    fns = {"aji": get_fast_aji, "dice": get_fast_dice_2,
+           "pq": lambda t, p: get_fast_pq(t, p)[0][2]}
+    with open(out_dir / "scores.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    for row in rows:
+        name = row["test image"] + ".tif"
+        t = remap_label(border_correction(imread(gt_dir / name),
+                                          cfg.border_width))
+        p = remap_label(border_correction(imread(out_dir / name),
+                                          cfg.border_width))
+        want = {"aji+": get_fast_aji_plus(t, p) if p.max() > 0 else 0.0}
+        want.update({m: fns[m](t, p) if p.max() > 0 else 0.0
+                     for m in cfg.extra_metrics})
+        if cfg.extra_metrics:
+            want["aji+"] = _pandas_float(repr(want["aji+"]))
+        for col, v in want.items():
+            if row[col] != repr(v):
+                raise AssertionError(f"scores.csv {row['test image']} "
+                                     f"{col}: {row[col]} != {v!r}")
+    return len(rows)
+
+
+def grid_held_against_plain(out_dir, th_pairs):
+    """Every slot of ``distance_postprocessing_grid``'s batch, with the
+    kernels, on each raw map saved in ``out_dir``, equals the plain
+    post-processing of that slot's pair alone; -> frames checked."""
+    from microbeseg_torch.ops.postprocessing import (
+        _distance_postprocessing, distance_postprocessing_grid)
+    from microbeseg_torch.utils.tiff import imread
+
+    raws = sorted(out_dir.glob("raw*.tif"))
+    for raw_path in raws:
+        raw = torch.from_numpy(imread(raw_path)).cuda()
+        masks = distance_postprocessing_grid(
+            raw[1], raw[0], np.asarray(th_pairs, np.float32)).cpu().numpy()
+        for (th_cell, th_seed), mask in zip(th_pairs, masks):
+            plain = _distance_postprocessing(
+                raw[1], raw[0], th_seed, th_cell, max_seeds=256,
+                **plain_kernels())
+            if not np.array_equal(mask, plain.cpu().numpy()):
+                raise AssertionError(
+                    f"grid slot ({th_cell}, {th_seed}) on {raw_path.name} "
+                    "differs from the plain post-processing of that pair")
+    return len(raws)
+
+
+EVAL_STAGES = ("load_model", "_predict_raw_dev",
+               "distance_postprocessing_grid", "imwrite", "imread",
+               "get_fast_aji_plus", "_extra_scores", "_zip_test_set")
+
+
+def stage_seconds(fn, names):
+    """Host seconds spent inside each named function during one call of
+    ``fn`` (cProfile's cumulative time, so nested stages overlap), and the
+    call's wall seconds under the profiler."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(fn)
+    wall = time.perf_counter() - t0
+    out = dict.fromkeys(names, 0.0)
+    for (_, _, func), (_, _, _, cum, _) in pstats.Stats(prof).stats.items():
+        if func in out:
+            out[func] += cum
+    return dict(wall_s=wall, **out)
+
+def eval_path(dev, report, model, profile=False):
+    """Phase 9: the evaluator (``Evaluator``, ``cli.evaluate``) on the
+    in-repo real test sets, from a checkpoint of the seeded model."""
+    import scipy
+    import tempfile
+
+    from microbeseg_torch.cli import evaluate as cli_evaluate
+    from microbeseg_torch.config import EvalConfig, ModelConfig, TrainConfig
+    from microbeseg_torch.evaluation.evaluator import Evaluator
+    from microbeseg_torch.inference.engine import InferenceEngine
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models.io import save_model
+    from microbeseg_torch.utils.tiff import imread
+
+    glut = REAL / "real_glutamicum"
+    out = {"scipy": scipy.__version__}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        set1 = test_set(tmp / "glutamicum", glut, range(40, 50))
+        set2 = test_set(tmp / "wt", REAL / "real_wt" / "test", (0, 1))
+        ckpt = save_model(model, TrainConfig(model=ModelConfig(),
+                                             run_name="eval_01"),
+                          tmp / "models")
+        bmodel = boundary_model(
+            6, dev, np.stack([imread(glut / f"img_{i:02d}.tif")
+                              for i in range(4)]))
+        bckpt = save_model(bmodel, TrainConfig(
+            model=ModelConfig(unet_type="U", ch_out=3), label_type="boundary",
+            loss="ce", run_name="eval_bnd_01"), tmp / "models")
+        frames1 = np.stack([imread(p) for p in sorted(
+            (set1 / "test").glob("img*.tif"))])
+        # a 4 x 2 grid from the model's own fields on the test frames,
+        # rounded as the refine round rounds its points
+        levels = field_levels(InferenceEngine(model, "distance", device=dev),
+                              frames1, (0.1, 0.2, 0.3, 0.4), (0.4, 0.6))
+        th_cells, th_seeds = (tuple(round(t, 4) for t in ts) for ts in levels)
+        cfg = EvalConfig(th_cells=th_cells, th_seeds=th_seeds,
+                         refine_steps=1, extra_metrics=("aji", "dice", "pq"),
+                         save_raw_pred=True)
+        bcfg = EvalConfig(save_raw_pred=True)
+        runs = {}
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        for name, data, c, ck in (("glutamicum", set1, cfg, ckpt),
+                                  ("wt", set2, cfg, ckpt),
+                                  ("wt_boundary", set2, bcfg, bckpt)):
+            said = []
+            t0 = time.perf_counter()
+            rows = Evaluator(c, text_output=said.append,
+                             device=None).evaluate(
+                data, tmp / "results" / name, [ck])
+            seconds = time.perf_counter() - t0
+            if rows is None or len(rows) != 1:
+                raise AssertionError(f"evaluation {name}: {rows}")
+            # the refine round names the points it adds
+            refined = sum(int(re.search(r"testing (\d+) neighbors",
+                                        m).group(1))
+                          for m in said if m.startswith("Refine"))
+            runs[name] = dict(seconds=seconds, refined_points=refined,
+                              row=rows[0], data=data, cfg=c,
+                              res=tmp / "results" / name
+                              / f"models_{ck.stem}")
+        argv = ["-d", str(set2), "-m", str(ckpt), "-r",
+                str(tmp / "results" / "cli"),
+                "--th_cells", *map(repr, th_cells[:2]),
+                "--th_seeds", *map(repr, th_seeds), "--metrics", "pq"]
+        t0 = time.perf_counter()
+        rc = cli_evaluate.main(argv)
+        cli_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        if rc != 0 or not (tmp / "results" / "cli.csv").is_file():
+            raise AssertionError(f"cli.evaluate: exit {rc}")
+        for name in ("flood_packed", "ranked_components"):
+            if launches[name] == 0:
+                raise AssertionError(f"kernel {name} was not launched on the "
+                                     "evaluation path")
+        for name in ("flood_packed_cluster", "flood_tiled_grid",
+                     "sequentialize_components"):
+            if launches[name]:
+                raise AssertionError(f"{name} ran on the evaluation path")
+        # where the time of the first run goes: the same run again, under
+        # cProfile, after the launches were read
+        stages = stage_seconds(lambda: Evaluator(cfg, device=None).evaluate(
+            set1, tmp / "results" / "profiled", [ckpt]),
+            EVAL_STAGES) if profile else None
+
+        for name, r in runs.items():
+            row, res = r["row"], r["res"]
+            gt = r["data"] / "test"
+            label_type = "boundary" if "boundary" in name else "distance"
+            r["instances_per_frame"] = held_against_plain(
+                res, label_type, row["th_cell"], row["th_seed"])
+            r["scored_frames"] = scores_recomputed(res, gt, r["cfg"])
+            if label_type == "distance":
+                r["grid_frames_held"] = grid_held_against_plain(
+                    res, list(itertools.product(th_cells, th_seeds)))
+            n_frames = len(list(gt.glob("img*.tif")))
+            r["ms_per_frame"] = r["seconds"] * 1e3 / n_frames
+            r.update(best=[row["th_cell"], row["th_seed"]],
+                     aji_plus=row["aji+ (mean)"])
+            for k in ("row", "res", "data", "cfg"):
+                del r[k]
+    g = runs["glutamicum"]
+    g["grid_points"] = len(th_cells) * len(th_seeds) + g["refined_points"]
+    g["ms_per_frame_and_grid_point"] = g["ms_per_frame"] / g["grid_points"]
+    out.update(runs=runs, cli_s=cli_s, launches=launches,
+               th_cells=th_cells, th_seeds=th_seeds,
+               glutamicum_stage_s=stages)
+    report["eval_path"] = out
+    print(f"evaluation: scipy {scipy.__version__}; glutamicum 40-49 (10 "
+          f"frames of 256^2, {g['grid_points']} grid points with the refine "
+          f"round's {g['refined_points']}) "
+          f"{g['seconds']:.3f} s = {g['ms_per_frame']:.2f} ms a frame, "
+          f"{g['ms_per_frame_and_grid_point']:.3f} ms a frame and grid "
+          f"point; wt (2 frames, 320x318 and 240x198) "
+          f"{runs['wt']['seconds']:.3f} s; boundary on wt "
+          f"{runs['wt_boundary']['seconds']:.3f} s; cli.evaluate "
+          f"{cli_s:.3f} s; best thresholds and AJI+ "
+          f"{ {k: (v['best'], v['aji_plus']) for k, v in runs.items()} }; "
+          f"instances/frame "
+          f"{ {k: v['instances_per_frame'] for k, v in runs.items()} }; "
+          + (f"the glutamicum run again under cProfile, host s by stage "
+             f"(nested) { {k: round(v, 4) for k, v in stages.items()} }; "
+             if stages else "") +
+          f"launches flood_packed {launches['flood_packed']}, "
+          f"ranked_components {launches['ranked_components']}; masks equal "
+          "the plain post-processing of the saved raw maps, and so does "
+          "each slot of the 8-pair grid batch on them; scores.csv equals "
+          "the metrics recomputed", flush=True)
+    return launches
+
+
+
+LABEL_TYPES = ("boundary", "border", "j4", "adapted_border", "cell_dist",
+               "cell_dist_clipped", "distance")
+
+
+def labels_path(dev, report):
+    """Phase 10: label generation (``create_labels``, ``get_label``) on the
+    50 masks of ``data/real_glutamicum``; then K3 alone on the gap masks
+    that path gives it."""
+    import shutil
+    import tempfile
+
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.ops import cc, labelgen
+    from microbeseg_torch.training.workers import create_labels
+    from microbeseg_torch.utils.tiff import imread
+
+    glut = REAL / "real_glutamicum"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for split, ids in (("train", range(40)), ("val", range(40, 50))):
+            (tmp / split).mkdir()
+            for i in ids:
+                shutil.copy(glut / f"mask_{i:02d}.tif", tmp / split)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        if not create_labels(tmp, "distance"):
+            raise AssertionError("create_labels refused the tree")
+        seconds = time.perf_counter() - t0
+        n_files = len(list(tmp.rglob("*_dist_*.tif")))
+        if n_files != 100:
+            raise AssertionError(f"create_labels wrote {n_files} of 100 "
+                                 "label files")
+        label = imread(tmp / "val" / "neighbor_dist_40.tif")
+        if label.dtype != np.float32 or not np.isfinite(label).all():
+            raise AssertionError("neighbour-distance label not finite float32")
+
+        # every label type on 4 masks: the card's result against the CPU's
+        errs, masks = {}, [imread(glut / f"mask_{i:02d}.tif")
+                           for i in (0, 17, 33, 45)]
+        for t in LABEL_TYPES:
+            errs[t] = 0.0
+            for m in masks:
+                mal = labelgen.max_major_axis_length(m)
+                if mal != labelgen.max_major_axis_length(m, device="cpu"):
+                    raise AssertionError("max_major_axis_length: card "
+                                         "differs from the CPU")
+                got = labelgen.get_label(m, t, max_mal=mal)
+                want = labelgen.get_label(m, t, max_mal=mal, device="cpu")
+                pairs = zip(got, want) if t == "distance" else [(got, want)]
+                for a, b in pairs:
+                    if a.dtype != b.dtype or a.shape != m.shape:
+                        raise AssertionError(f"{t}: {a.dtype} {a.shape}")
+                    err = float(np.abs(a.astype(np.float64) - b).max())
+                    errs[t] = max(errs[t], err)
+            tol = 0.0 if t in ("boundary", "border", "j4",
+                               "adapted_border") else 1e-5
+            if errs[t] > tol:
+                raise AssertionError(f"{t} labels: card differs from the CPU "
+                                     f"by {errs[t]} (tolerance {tol})")
+        launches = dict(_build.LAUNCHES)
+    if launches["connected_components"] == 0:
+        raise AssertionError("kernel connected_components was not launched "
+                             "on the label path")
+
+    # one mask's distance labels: the host's time against the device time
+    # of the kernels it launches
+    m = masks[0]
+    mal = labelgen.max_major_axis_length(m)
+    split = host_and_device(
+        lambda: labelgen.get_label(m, "distance", max_mal=mal), reps=5)
+    split["device_ms"] = sum(split["device_us"].values()) / 1e3
+    split["top_device_us"] = dict(sorted(
+        split.pop("device_us").items(), key=lambda kv: -kv[1])[:5])
+
+    # K3 alone on the gap masks of the path (the bottom hat of one mask)
+    gaps = []
+    real_cc = cc.connected_components
+
+    def recording(mask, *args, **kwargs):
+        gaps.append(mask.clone())
+        return real_cc(mask, *args, **kwargs)
+
+    cc.connected_components = recording
+    try:
+        labelgen.get_label(m, "distance", max_mal=mal)
+    finally:
+        cc.connected_components = real_cc
+    gap = gaps[0][None]
+    if tuple(gap.shape) != (1, SIDE, SIDE) or not gap.any():
+        raise AssertionError(f"gap mask {tuple(gap.shape)}, "
+                             f"{int(gap.sum())} px")
+    err = (cc.connected_components(gap).to(torch.int64)
+           - cc.connected_components_plain(gap)).abs().max().item()
+    if err:
+        raise AssertionError(f"K3 on the gap mask: max abs err {err}")
+    px = gap.numel()
+    k3 = report["kernels"]["connected_components"]
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+        k3[key + "_b16"] = k3[key]
+    t_bytes = px * (1 + 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = px * 8 / INT_OPS_PER_S * 1e3
+    k3.update(shape=[1, SIDE, SIDE], gap_px=int(gap.sum()),
+              ms=cuda_ms(lambda: cc.connected_components(gap), 50),
+              plain_ms=cuda_ms(lambda: cc.connected_components_plain(gap), 3,
+                               warmup=1),
+              bound_ms=max(t_bytes, t_ops),
+              bound_by="bytes" if t_bytes >= t_ops else "operations")
+    out.update(seconds=seconds, ms_per_mask=seconds * 1e3 / 50,
+               card_vs_cpu_max_abs_err=errs, launches=launches,
+               get_label_distance=split)
+    report["labels_path"] = out
+    print(f"labels: create_labels 'distance' on 50 masks of {SIDE}^2 in "
+          f"{seconds:.3f} s = {out['ms_per_mask']:.2f} ms a mask; card vs "
+          f"CPU max abs err {errs}; one mask's get_label 'distance': "
+          f"{split['host_ms']:.3f} ms of host time, its kernels "
+          f"{split['device_ms']:.3f} ms of device time (largest, us: "
+          f"{split['top_device_us']}); launches connected_components "
+          f"{launches['connected_components']}; K3 on the path's gap mask "
+          f"(1 x {SIDE}^2, {k3['gap_px']} px set) {k3['ms']:.5f} ms, plain "
+          f"{k3['plain_ms']:.4f} ms, bound {k3['bound_ms']:.6f} ms "
+          f"({k3['bound_by']})", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the full report as JSON here")
+    ap.add_argument("--profile-eval", action="store_true",
+                    help="run the first evaluation again under cProfile "
+                    "and report host seconds by stage")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1672,12 +2095,15 @@ def main() -> int:
     small_checks(dev, report, model, cpu_model, thresholds)
     int8_launches, narrow_launches = int8_path(dev, report, model, thresholds)
     cli_launches = cli_path(dev, report, model, thresholds)
+    eval_launches = eval_path(dev, report, model, args.profile_eval)
+    label_launches = labels_path(dev, report)
     report["total_s"] = time.perf_counter() - t0
     # launches: those of the full-width paths' own runs (crop, tiled frame,
-    # int8 crop, int8 tiled frame, CLI), each counted from 0.  The two side
-    # runs (K3 + the general K4 as label_fn, the narrow int8 model) are kept
-    # apart under side_run_launches.
-    driven = [crop_launches, big_launches, *int8_launches, cli_launches]
+    # int8 crop, int8 tiled frame, inference CLI, evaluation, labels), each
+    # counted from 0.  The two side runs (K3 + the general K4 as label_fn,
+    # the narrow int8 model) are kept apart under side_run_launches.
+    driven = [crop_launches, big_launches, *int8_launches, cli_launches,
+              eval_launches, label_launches]
     launches = {k: sum(d[k] for d in driven) for k in _build.LAUNCHES}
     side = {k: general_launches[k] + narrow_launches[k]
             for k in _build.LAUNCHES}
@@ -1688,7 +2114,8 @@ def main() -> int:
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{k: v for k, v in r.items()
-                       if k.endswith(("_2048", "_4096")) or k in (
+                       if k.endswith(("_2048", "_4096", "_b16")) or k in (
+                           "gap_px",
                            "shape", "shapes", "host_ms", "device_us",
                            "steps_per_image", "us_per_step", "sides",
                            "setup_ms", "setup_and_levels_ms",

@@ -1,9 +1,9 @@
 """Typed configuration and the JSON model sidecar.
 
 A copy of the configuration surface of ``microbeseg_tpu/config.py``:
-``ModelConfig``, ``TrainConfig``, ``InferConfig``, the pad-bucket table and
-the sidecar read/parse, so checkpoints written by either package describe
-their architecture the same way.
+``ModelConfig``, ``TrainConfig``, ``InferConfig``, ``EvalConfig``, the
+pad-bucket table and the sidecar read/parse, so checkpoints written by
+either package describe their architecture the same way.
 """
 
 from __future__ import annotations
@@ -124,6 +124,36 @@ class InferConfig:
     # transforms (4 flips, all 8 of D4 on square inputs)
     tta: bool = False
 
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Evaluation grid (reference: src/evaluation/eval.py:127-131)."""
+
+    th_cells: Tuple[float, ...] = (0.05, 0.075, 0.10, 0.125)
+    th_seeds: Tuple[float, ...] = (0.35, 0.45)
+    batch_size: int = 8
+    save_raw_pred: bool = False
+    # border correction inset (reference: utils.py:25)
+    border_width: int = 10
+    # coarse-to-fine threshold search: after the coarse grid, evaluate
+    # halved-spacing neighbours around the running best for this many
+    # rounds (0 = grid only)
+    refine_steps: int = 0
+    # evaluate with test-time augmentation (InferConfig.tta)
+    tta: bool = False
+    # evaluate ALL given models as ONE ensemble (averaged predictions,
+    # InferenceEngine.from_checkpoints) instead of one row per model
+    ensemble: bool = False
+    # extra per-image metric columns ('aji', 'dice', 'pq') computed at the
+    # AJI+-selected best thresholds; model selection stays AJI+-driven
+    extra_metrics: Tuple[str, ...] = ()
+
+    def __post_init__(self):
+        bad = set(self.extra_metrics) - {"aji", "dice", "pq"}
+        if bad:
+            raise ValueError(f"unknown extra_metrics {sorted(bad)} "
+                             "(choose from aji, dice, pq)")
 
 # Description of the training augmentation pipeline, stored under the
 # sidecar's 'transforms' key as the reference stores the repr of its Compose.

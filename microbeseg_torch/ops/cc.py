@@ -202,3 +202,33 @@ def sequentialize_components(labels: torch.Tensor) -> torch.Tensor:
             (_build.ptr(lab), _build.ptr(rank0), _build.ptr(parent),
              _build.ptr(out), B, H, W, _build.stream_ptr(lab)))
     return out[0] if squeeze else out
+
+
+def _presence(labels: torch.Tensor):
+    """(flat int32 ids, id bound, presence table over 0..bound, 0 unset).
+    The bound, max(size, 65535), covers CC linear-index ids and uint16 mask
+    ids; larger ids share the bound's entry."""
+    flat = labels.to(torch.int32).reshape(-1)
+    bound = max(flat.numel(), 65535)
+    present = torch.zeros(bound + 1, dtype=torch.int32, device=flat.device)
+    present[torch.clamp(flat, 0, bound).to(torch.int64)] = 1
+    present[0] = 0
+    return flat, bound, present
+
+
+def relabel_sequential(labels: torch.Tensor) -> torch.Tensor:
+    """Map positive ids to 1..n in increasing order (0 and negative ids give
+    0), as ``microbeseg_tpu/ops/cc.py::relabel_sequential``: a presence
+    table and its prefix sum, no sort.  Returns int32 of the input's
+    shape."""
+    flat, bound, present = _presence(labels)
+    ranks = torch.cumsum(present, 0, dtype=torch.int32)
+    idx = torch.clamp(flat, 0, bound).to(torch.int64)
+    out = torch.where(flat > 0, ranks[idx], 0)
+    return out.view(labels.shape)
+
+
+def num_labels(labels: torch.Tensor) -> torch.Tensor:
+    """Count distinct positive ids (bounded as in ``relabel_sequential``):
+    a 0-dim int tensor."""
+    return _presence(labels)[2].sum()

@@ -1,4 +1,5 @@
-"""Host-side image utilities: min/max normalization and bucket padding."""
+"""Host-side image utilities: min/max normalization, bucket padding and the
+border correction of masks before scoring."""
 
 from __future__ import annotations
 
@@ -40,3 +41,13 @@ def pad_bucket_shape(h: int, w: int) -> Tuple[int, int]:
                 f"side {s} exceeds the largest pad bucket {PAD_BUCKETS[-1]}; "
                 "use tiled inference (InferConfig.use_tiling=True)")
     return out[0], out[1]
+
+
+def border_correction(mask: np.ndarray, border_width: int = 10) -> np.ndarray:
+    """Drop instances absent from the inset field of interest before scoring."""
+    mask = np.asarray(mask)
+    foi = mask[border_width:mask.shape[0] - border_width,
+               border_width:mask.shape[1] - border_width]
+    keep = np.unique(foi)
+    out = np.where(np.isin(mask, keep), mask, 0)
+    return out.astype(mask.dtype)

@@ -414,11 +414,12 @@ def test_cli_quantize_reaches_the_engine(checkpoint, tmp_path, monkeypatch):
 
 def test_port_imports_without_jax_or_the_jax_package():
     """Every module of microbeseg_torch imports in a fresh process where
-    jax, flax, msgpack, triton and microbeseg_tpu cannot be imported; and no
-    source names them in an import."""
+    jax, flax, msgpack, triton, pandas and microbeseg_tpu cannot be
+    imported; and no source names them in an import."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'flax', 'msgpack', 'triton', 'microbeseg_tpu'):\n"
+        "for m in ('jax', 'flax', 'msgpack', 'triton', 'pandas',\n"
+        "          'microbeseg_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import microbeseg_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -430,12 +431,15 @@ def test_port_imports_without_jax_or_the_jax_package():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 19
+    assert int(res.stdout.strip()) >= 30
     for mod in ("inference.tiling", "ops.resize", "ops.augment",
-                "ops.kernels.matmul"):
+                "ops.kernels.matmul", "evaluation.metrics",
+                "evaluation.evaluator", "cli.evaluate", "ops.morphology",
+                "ops.edt", "ops.regionprops", "ops.labelgen",
+                "training.workers"):
         assert (REPO / "microbeseg_torch" / (mod.replace(".", "/") + ".py")
                 ).is_file()
-    banned = {"jax", "flax", "msgpack", "triton", "microbeseg_tpu"}
+    banned = {"jax", "flax", "msgpack", "triton", "pandas", "microbeseg_tpu"}
     pattern = re.compile(r"^\s*(?:from\s+(\S+)\s+import|import\s+(.+))")
     for src in [*(REPO / "microbeseg_torch").rglob("*.py"),
                 REPO / "chip_smoke.py"]:
