@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``microbeseg_torch``) on one GPU.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--profile-eval]
+                          [--train-quality]
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from ``microbeseg_torch/csrc`` (one nvcc per
@@ -109,9 +110,28 @@
    (1 x 256^2) beside its plain version and bound; these become K3's times
    in the kernel line (the 16 x 256^2 ones stay under ``*_b16``).
 
+11. Training: ``create_labels`` on the glutamicum split of
+   scripts/real_data_eval.py (train 0-34, val 35-39, test 40-49, polarity
+   inverted), then ``run_training`` as ``cli.train`` runs it (the flagship
+   DUNet, Ranger, mish, gn, batch 4, bf16 autocast) for up to 12 + 1
+   epochs (cut from 20 + 2 to keep the phase near 40 s).  Checks that the best validation loss fell below epoch 1's,
+   that the ``.ckpt`` and sidecar load through ``models/io.load_model`` and
+   the engine segments the test frames with them, that K3 launched in the
+   label step, and one step of the path's model and batch (full width,
+   batch 4 of 256^2) with fixed augmentation, leaf by leaf: in float64 the
+   card's update within 1e-9 of the CPU's (norm of the difference over the
+   norm of the CPU's), in float32 the card's no further from the float64
+   step than twice the CPU's float32 step plus 1e-6, the loss within 1e-5.  Times a step in
+   turns (whole, augmentation, forward + backward, optimizer), the host's
+   enqueue time of a step against its kernels' device time, the two
+   ``up_impl`` variants in turns, ms an epoch, s for the fit, peak memory,
+   and the step's share of 989 TFLOP/s from the convolutions' FLOPs.  With
+   ``--train-quality`` it also trains the protocol's model (batch 8, 60
+   epochs) and scores AJI+ on frames 40-49 with the ``Evaluator``.
+
 The next-to-last line of stdout is a JSON object with one entry per kernel.
 Its ``launches`` are those of the full-width paths' own runs (steps 4, 5, 7
-without the narrow model, 8, 9 and 10); what the two side runs launched
+without the narrow model, 8, 9, 10 and 11); what the two side runs launched
 (K3 and the general K4 as the labelling function in step 4, the narrow
 model in step 7) stands apart as ``side_run_launches``.  Each wrapper's host enqueue time and
 the device time of every kernel it launches (``torch.profiler``) stand under
@@ -2059,6 +2079,446 @@ def labels_path(dev, report):
     return launches
 
 
+GLUT_SPLITS = {"train": range(0, 35), "val": range(35, 40),
+               "test": range(40, 50)}
+TRAIN_STEP_TOL64 = 1e-9      # one float64 step, card vs CPU: worst leaf's
+#                              update error over the CPU update's norm
+TRAIN_STEP_F32_FLOOR = 1e-6  # float32: card <= 2 x CPU's error + this
+TRAIN_EPOCHS = 12       # the default phase's first run; the second takes 1
+
+
+def stage_glutamicum(root: Path) -> Path:
+    """``data/real_glutamicum`` in the trainset layout of
+    scripts/real_data_eval.py: train 0-34, val 35-39, test 40-49, the
+    images' polarity inverted (the cells bright, as the engine expects)."""
+    from microbeseg_torch.utils.tiff import imread_page, imwrite
+
+    glut = REAL / "real_glutamicum"
+    for split, ids in GLUT_SPLITS.items():
+        (root / split).mkdir(parents=True, exist_ok=True)
+        for i in ids:
+            img = imread_page(glut / f"img_{i:02d}.tif", 0)
+            mask = imread_page(glut / f"mask_{i:02d}.tif", 0)
+            imwrite(root / split / f"img_{i:02d}.tif",
+                    (65535 - img).astype(np.uint16))
+            imwrite(root / split / f"mask_{i:02d}.tif",
+                    mask.astype(np.uint16))
+    return root
+
+
+def conv_flops(model, x) -> int:
+    """Multiply-add FLOPs of every convolution of one forward on ``x``,
+    from the layer shapes (2 per multiply-add)."""
+    from torch import nn
+
+    total = [0]
+
+    def hook(m, inputs, out):
+        k = m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, nn.ConvTranspose2d):
+            i = inputs[0]
+            total[0] += (2 * i.shape[0] * i.shape[2] * i.shape[3]
+                         * m.in_channels * m.out_channels * k)
+        else:
+            total[0] += 2 * out.numel() * m.in_channels * k
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
+    try:
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def loss_history(path: Path):
+    """(epoch, train, val) rows of each run's block of ``{run}_loss.txt``."""
+    blocks, rows = [], []
+    for line in path.read_text().splitlines():
+        if line.startswith("#"):
+            continue
+        if not line.strip():
+            if rows:
+                blocks.append(rows)
+            rows = []
+            continue
+        e, tr, va = (float(v) for v in line.split(","))
+        rows.append((int(e), tr, va))
+    if rows:
+        blocks.append(rows)
+    return blocks
+
+
+def step_card_vs_cpu(data, tmp):
+    """One training step of the path's model and batch (the full-width
+    DUNet, batch 4 of the crop size) with fixed augmentation parameters, on
+    the card and on the CPU from the same weights, held leaf by leaf: each
+    parameter's update as the norm of its difference over the norm of the
+    reference's update, the worst leaf reported.  (A first Ranger step is
+    lr times the centred gradient, so each leaf's gradient is held on its
+    own scale.)
+
+    - The augmentation on the card against the CPU's.
+    - float64 on both devices from the CPU's augmented batch: every leaf
+      within ``TRAIN_STEP_TOL64`` of the CPU's.  This holds that the card
+      computes the CPU's step.
+    - float32 on both devices, each held against the float64 CPU step:
+      every leaf of the card's within twice the CPU's own float32 error on
+      that leaf plus ``TRAIN_STEP_F32_FLOOR``, and the loss within 1e-5 of
+      the CPU's.  float32 is held against the exact step and not card
+      against CPU alone: GroupNorm scales near 1.0 take first updates of a
+      few float32 ulps of 1.0, so their stored updates are off the exact
+      step by percents on either device."""
+    from microbeseg_torch.config import ModelConfig, TrainConfig
+    from microbeseg_torch.ops.augment import apply_params, draw_params
+    from microbeseg_torch.training.optimizers import build_optimizer
+    from microbeseg_torch.training.trainer import Trainer, init_like_flax
+
+    cfg = TrainConfig(model=ModelConfig(act_fun="mish", normalization="gn"),
+                      compute_dtype="float32", run_name="step_check")
+    n, size = cfg.batch_size, data.crop_size
+    images = torch.from_numpy(data.train.images[:n].copy())
+    labels = {k: torch.from_numpy(v[:n].copy())
+              for k, v in data.train.labels.items()}
+    params = draw_params(torch.Generator().manual_seed(5), n, size)
+    aug = {dev: apply_params(images.to(dev),
+                             {k: v.to(dev) for k, v in labels.items()},
+                             params, cfg.label_type)
+           for dev in ("cpu", "cuda")}
+    aug_err = max([float((aug["cuda"][0].cpu() - aug["cpu"][0]).abs().max())]
+                  + [float((aug["cuda"][1][k].cpu() - v).abs().max())
+                     for k, v in aug["cpu"][1].items()])
+    if not aug_err <= 1e-6:
+        raise AssertionError(f"the augmentation on the card vs the CPU's: "
+                             f"max abs err {aug_err} (tolerance 1e-6)")
+
+    steps, init, names = {}, None, None
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev, dt in itertools.product(("cpu", "cuda"),
+                                         (torch.float64, torch.float32)):
+            tr = Trainer(cfg, tmp / f"step_{dev}", device=dev)
+            if init is None:
+                init = {k: v.clone() for k, v in
+                        init_like_flax(tr.model, 0).state_dict().items()}
+            tr.model.to(dt)
+            tr.model.load_state_dict(init)
+            tr.optimizer = build_optimizer(cfg, tr.model)[0]
+            names = [k for k, _ in tr.model.named_parameters()]
+            before = [p.detach().cpu().double().clone()
+                      for p in tr.model.parameters()]
+            t0 = time.perf_counter()
+            loss = float(tr.forward_backward(
+                aug["cpu"][0].to(dev, dt),
+                {k: v.to(dev, dt) for k, v in aug["cpu"][1].items()},
+                torch.ones(n, device=dev, dtype=dt)))
+            tr.optimizer.step()
+            upd = [p.detach().cpu().double() - b for p, b in zip(
+                tr.model.parameters(), before)]
+            steps[dev, dt] = (loss, upd, time.perf_counter() - t0)
+            del tr
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+    ref_loss, ref, _ = steps["cpu", torch.float64]
+
+    def leaf_err(upd):
+        return [float((a - b).norm() / b.norm()) if float(b.norm()) > 0
+                else (0.0 if float(a.norm()) == 0 else float("inf"))
+                for a, b in zip(upd, ref)]
+
+    def worst(errs):
+        i = int(np.argmax(errs))
+        return names[i], errs[i]
+
+    e64 = leaf_err(steps["cuda", torch.float64][1])
+    e32_card = leaf_err(steps["cuda", torch.float32][1])
+    e32_cpu = leaf_err(steps["cpu", torch.float32][1])
+    excess = [c - (2 * p + TRAIN_STEP_F32_FLOOR)
+              for c, p in zip(e32_card, e32_cpu)]
+    l64 = abs(steps["cuda", torch.float64][0] - ref_loss) / abs(ref_loss)
+    l32 = (abs(steps["cuda", torch.float32][0] - steps["cpu", torch.float32][0])
+           / abs(steps["cpu", torch.float32][0]))
+    out = dict(
+        batch=n, size=size, leaves=len(names), augmentation_max_abs_err=aug_err,
+        f64_worst_leaf=worst(e64), f64_median_leaf=float(np.median(e64)),
+        f64_loss_rel_err=l64, f64_tolerance=TRAIN_STEP_TOL64,
+        f32_card_worst_leaf=worst(e32_card),
+        f32_card_median_leaf=float(np.median(e32_card)),
+        f32_cpu_worst_leaf=worst(e32_cpu),
+        f32_cpu_median_leaf=float(np.median(e32_cpu)),
+        f32_worst_excess=worst(excess), f32_floor=TRAIN_STEP_F32_FLOOR,
+        f32_loss_card=steps["cuda", torch.float32][0],
+        f32_loss_cpu=steps["cpu", torch.float32][0], f32_loss_rel_err=l32,
+        step_s={f"{d}_{str(t)[6:]}": v[2] for (d, t), v in steps.items()})
+    if not (max(e64) <= TRAIN_STEP_TOL64 and l64 <= 1e-12):
+        raise AssertionError(f"one float64 step, card vs CPU: {out}")
+    if not (max(excess) <= 0 and l32 <= 1e-5):
+        raise AssertionError(f"one float32 step, card vs the float64 step: "
+                             f"{out}")
+    return out
+
+
+def step_times(tr, data, reps=4):
+    """A full-width bf16 training step (batch 4 of 256^2) timed in turns:
+    whole step, augmentation, forward + backward, optimizer step (CUDA
+    events); the host's enqueue time of a step beside the device time of
+    its kernels (``torch.profiler``); both ``up_impl`` variants of the
+    upsampling, in turns; the step's share of the bf16 peak."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from microbeseg_torch.models.unet import build_unet
+    from microbeseg_torch.ops.augment import apply_params, draw_params
+    from microbeseg_torch.training.optimizers import build_optimizer
+
+    cfg = tr.cfg
+    gen = torch.Generator().manual_seed(11)
+    cache = tr._device_cache(data.train)
+    idx = np.arange(cfg.batch_size, dtype=np.int32)
+    w = np.ones(cfg.batch_size, np.float32)
+    images, labels, weights = tr._batch(cache, idx, w)
+    size = data.crop_size
+
+    def whole():
+        tr.train_step(images, labels, weights,
+                      draw_params(gen, cfg.batch_size, size))
+
+    def aug():
+        return apply_params(images, labels,
+                            draw_params(gen, cfg.batch_size, size),
+                            cfg.label_type)
+
+    aug_out = aug()
+
+    def fwd_bwd():
+        tr.forward_backward(aug_out[0], aug_out[1], weights)
+
+    def opt():
+        tr.optimizer.step()
+
+    parts = dict(step=whole, augment=aug, forward_backward=fwd_bwd,
+                 optimizer=opt)
+    times = {k: [] for k in parts}
+    for _ in range(reps):
+        for k, fn in parts.items():
+            times[k].append(cuda_ms(fn, 5, warmup=1))
+    ms = {k: statistics.median(v) for k, v in times.items()}
+
+    # host enqueue of one step (queue drained before each) against the
+    # device time of its kernels
+    host = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            whole()
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.key_averages():   # names that share 80 characters add up
+        if ev.device_time_total > 0 and not ev.key.startswith(
+                ("aten::", "Activity Buffer")):
+            kernels[ev.key[:80]] = (kernels.get(ev.key[:80], 0.0)
+                                    + ev.device_time_total / 5)
+    device_ms = sum(kernels.values()) / 1e3
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
+
+    flops = 3 * conv_flops(tr.model, aug()[0])
+
+    # up_impl: 'conv' (nn.ConvTranspose2d) against 'matmul' (_MatmulUp),
+    # same weights, forward + backward + step timed in turns
+    matmul = build_unet(cfg.model, up_impl="matmul").to(
+        tr.device, memory_format=torch.channels_last)
+    matmul.load_state_dict(tr.model.state_dict())
+    variants = {"conv": (tr.model, tr.optimizer),
+                "matmul": (matmul, build_optimizer(cfg, matmul)[0])}
+    up_ms = {k: [] for k in variants}
+    keep = tr.model, tr.optimizer
+    try:
+        for _ in range(reps):
+            for impl, (m, o) in variants.items():
+                tr.model, tr.optimizer = m, o
+                up_ms[impl].append(cuda_ms(
+                    lambda: (fwd_bwd(), opt()), 5, warmup=1))
+    finally:
+        tr.model, tr.optimizer = keep
+    up = {k: statistics.median(v) for k, v in up_ms.items()}
+    return dict(ms=ms, ms_all=times,
+                host_enqueue_ms=statistics.median(host),
+                device_ms=device_ms, top_device_us=top,
+                n_kernel_names=len(kernels), conv_flops_per_step=flops,
+                peak_share=flops / (ms["step"] * 1e-3) / BF16_FLOPS_PER_S,
+                up_impl_ms=up, up_impl_ms_all=up_ms)
+
+
+def train_path(dev, report, quality=False):
+    """Phase 11: training.  ``create_labels`` on the glutamicum split, then
+    ``run_training`` as ``cli.train`` runs it (the flagship DUNet, Ranger,
+    mish, gn, batch 4, bf16) for up to 12 + 1 epochs; the best checkpoint
+    segments the test frames in the engine.  Then one float32 step card vs
+    CPU, the step timed by part, and with ``quality`` the protocol at 60
+    epochs scored by the ``Evaluator`` (AJI+ on frames 40-49)."""
+    import tempfile
+
+    from microbeseg_torch.config import ModelConfig, TrainConfig
+    from microbeseg_torch.inference.engine import InferenceEngine
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.config import read_sidecar
+    from microbeseg_torch.models.io import load_model
+    from microbeseg_torch.training.data import TrainingData
+    from microbeseg_torch.training.trainer import Trainer
+    from microbeseg_torch.training.workers import create_labels, run_training
+    from microbeseg_torch.utils.tiff import imread
+
+    out = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        trainset = stage_glutamicum(tmp / "trainset_real")
+        models = tmp / "models"
+        said, stamps = [], []
+
+        def record(msg):
+            said.append(msg)
+            stamps.append((time.perf_counter(), msg))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        if not create_labels(trainset, "distance", text_output=said.append):
+            raise AssertionError("create_labels refused the glutamicum split")
+        labels_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if not run_training(trainset, models, "distance", 1, "ranger", 4,
+                            text_output=record, max_epochs=TRAIN_EPOCHS):
+            raise AssertionError(f"run_training failed: {said[-5:]}")
+        fit_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        ckpt = models / "distance_model_01.ckpt"
+        side = read_sidecar(models / "distance_model_01.json")
+        blocks = loss_history(models / "distance_model_01_loss.txt")
+        first = blocks[0]
+        best_val = min(v for _, _, v in first)
+        if not best_val < first[0][2]:
+            raise AssertionError(f"validation loss never fell below epoch "
+                                 f"1's {first[0][2]}: {first}")
+        model, _ = load_model(ckpt)
+        frames = np.stack([imread(p) for p in sorted(
+            (trainset / "test").glob("img*.tif"))])
+        masks = InferenceEngine(model, "distance").segment(frames)
+        launches = dict(_build.LAUNCHES)
+        n_inst = [len(np.unique(m)) - 1 for m in masks]
+        if masks.shape != frames.shape or max(n_inst) == 0:
+            raise AssertionError(f"the trained model's masks: {masks.shape}, "
+                                 f"instances {n_inst}")
+        if launches["connected_components"] == 0:
+            raise AssertionError("kernel connected_components was not "
+                                 "launched by the label step")
+
+        data = TrainingData.from_directory(trainset, "distance")
+        out["step_card_vs_cpu"] = step_card_vs_cpu(data, tmp)
+        cfg = TrainConfig(model=ModelConfig(act_fun="mish",
+                                            normalization="gn"),
+                          batch_size=4, run_name="timing",
+                          max_epochs=TRAIN_EPOCHS)
+        tr = Trainer(cfg, tmp / "timing")
+        tr.model.load_state_dict(model.state_dict())
+        from microbeseg_torch.training.optimizers import build_optimizer
+        tr.optimizer = build_optimizer(cfg, tr.model)[0]
+        out["step"] = step_times(tr, data)
+        del tr
+
+        epochs = side["trained_epochs"] + side.get("trained_epochs_run2", 0)
+        # wall s between the trainer's messages: each epoch, and the end of
+        # each run (the checkpoint's write) after its last epoch
+        marks = [(t, m) for t, m in stamps if "Loss train" in m
+                 or m.startswith(("Training completed", "Train/validate",
+                                  "Start 2nd run"))]
+        gaps = [(round(b - a, 4), m) for (a, _), (b, m) in zip(marks,
+                                                              marks[1:])]
+        epoch_gaps = [g for (g, m), (_, prev) in zip(gaps, marks)
+                      if "Loss train" in m and "Loss train" in prev]
+        out["message_gaps_s"] = [g for g, _ in gaps]
+        out.update(
+            labels_s=labels_s, fit_s=fit_s, peak_mem_gib=peak_gib,
+            trained_epochs=side["trained_epochs"],
+            trained_epochs_run2=side.get("trained_epochs_run2"),
+            training_time_s=side["training_time"],
+            training_time_run_2_s=side.get("training_time_run_2"),
+            ms_per_epoch=statistics.median(epoch_gaps) * 1e3,
+            ms_per_epoch_with_setup_and_writes=(
+                side["training_time"] + side.get("training_time_run_2", 0.0))
+            * 1e3 / epochs,
+            val_epoch1=first[0][2], val_best=best_val,
+            loss_history=blocks, instances_per_test_frame=n_inst,
+            launches=launches)
+        out["phase_s"] = time.perf_counter() - t_phase
+        if quality:
+            out["quality"] = train_quality(trainset, tmp / "quality")
+    report["train_path"] = out
+    st = out["step"]
+    print(f"training on {report['card']}: create_labels on the 40 "
+          f"train/val masks "
+          f"{labels_s:.3f} s; run_training (flagship DUNet, Ranger, mish, "
+          f"gn, batch 4, bf16) {out['trained_epochs']} + "
+          f"{out['trained_epochs_run2']} epochs in {fit_s:.3f} s "
+          f"({out['ms_per_epoch']:.2f} ms between two epochs: 9 steps + val), peak "
+          f"{peak_gib:.2f} GiB; val loss epoch 1 {out['val_epoch1']:.5f} -> "
+          f"best {best_val:.5f}; test-frame instances {n_inst}; step ms "
+          f"(median of turns) { {k: round(v, 4) for k, v in st['ms'].items()} }"
+          f"; host enqueue {st['host_enqueue_ms']:.3f} ms vs device "
+          f"{st['device_ms']:.3f} ms a step; "
+          f"{st['conv_flops_per_step'] / 1e12:.4f} TFLOP a step = "
+          f"{100 * st['peak_share']:.2f}% of 989 TFLOP/s; up_impl ms "
+          f"{ {k: round(v, 4) for k, v in st['up_impl_ms'].items()} }; one "
+          f"step card vs CPU (batch 4 of 256^2, leaf by leaf) "
+          f"{out['step_card_vs_cpu']}; "
+          f"launches connected_components {launches['connected_components']}"
+          f"; the phase {out['phase_s']:.1f} s"
+          + (f"; quality {out['quality']}" if quality else ""), flush=True)
+    return launches
+
+
+def train_quality(trainset: Path, tmp: Path) -> dict:
+    """The protocol of scripts/real_data_eval.py on the port: the flagship
+    (mish, gn, Ranger, batch 8) trained 60 epochs on frames 0-34 (val
+    35-39), scored by the ``Evaluator`` on frames 40-49 with the extended
+    seed grid."""
+    from microbeseg_torch.config import EvalConfig, ModelConfig, TrainConfig
+    from microbeseg_torch.evaluation.evaluator import Evaluator
+    from microbeseg_torch.training.data import TrainingData
+    from microbeseg_torch.training.trainer import Trainer
+
+    cfg = TrainConfig(model=ModelConfig(act_fun="mish", normalization="gn"),
+                      optimizer="ranger", batch_size=8,
+                      run_name="real_model_01", max_epochs=60)
+    models = tmp / "models" / "trainset_real"
+    t0 = time.perf_counter()
+    Trainer(cfg, models).fit(TrainingData.from_directory(trainset,
+                                                         "distance"))
+    fit_s = time.perf_counter() - t0
+    ev = Evaluator(EvalConfig(th_seeds=(0.35, 0.45, 0.55, 0.65, 0.75)))
+    rows = ev.evaluate(trainset, tmp / "eval", [models / cfg.run_name])
+    if not rows:
+        raise AssertionError("the evaluation of the trained model gave no "
+                             "scores")
+    best = max(rows, key=lambda r: r["aji+ (mean)"])
+    return dict(fit_s=fit_s, aji_mean=best["aji+ (mean)"],
+                aji_std=best["aji+ (std)"], th_cell=best["th_cell"],
+                th_seed=best["th_seed"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2066,6 +2526,9 @@ def main() -> int:
     ap.add_argument("--profile-eval", action="store_true",
                     help="run the first evaluation again under cProfile "
                     "and report host seconds by stage")
+    ap.add_argument("--train-quality", action="store_true",
+                    help="also train the flagship 60 epochs on the "
+                    "glutamicum split and score AJI+ on frames 40-49")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2097,13 +2560,14 @@ def main() -> int:
     cli_launches = cli_path(dev, report, model, thresholds)
     eval_launches = eval_path(dev, report, model, args.profile_eval)
     label_launches = labels_path(dev, report)
+    train_launches = train_path(dev, report, args.train_quality)
     report["total_s"] = time.perf_counter() - t0
     # launches: those of the full-width paths' own runs (crop, tiled frame,
     # int8 crop, int8 tiled frame, inference CLI, evaluation, labels), each
     # counted from 0.  The two side runs (K3 + the general K4 as label_fn,
     # the narrow int8 model) are kept apart under side_run_launches.
     driven = [crop_launches, big_launches, *int8_launches, cli_launches,
-              eval_launches, label_launches]
+              eval_launches, label_launches, train_launches]
     launches = {k: sum(d[k] for d in driven) for k in _build.LAUNCHES}
     side = {k: general_launches[k] + narrow_launches[k]
             for k in _build.LAUNCHES}

@@ -2,8 +2,9 @@
 
 A copy of the configuration surface of ``microbeseg_tpu/config.py``:
 ``ModelConfig``, ``TrainConfig``, ``InferConfig``, ``EvalConfig``, the
-pad-bucket table and the sidecar read/parse, so checkpoints written by
-either package describe their architecture the same way.
+pad-bucket table, the epoch budget (``get_max_epochs``) and the sidecar
+read/parse, so checkpoints written by either package describe their
+architecture the same way.
 """
 
 from __future__ import annotations
@@ -154,6 +155,26 @@ class EvalConfig:
         if bad:
             raise ValueError(f"unknown extra_metrics {sorted(bad)} "
                              "(choose from aji, dice, pq)")
+
+
+def get_max_epochs(n_samples: int, crop_size: int) -> int:
+    """Epoch budget from the training set's size (reference:
+    src/training/train.py:579-606)."""
+    if n_samples >= 1000:
+        max_epochs = 200
+    elif n_samples >= 500:
+        max_epochs = 240
+    elif n_samples >= 200:
+        max_epochs = 320
+    elif n_samples >= 100:
+        max_epochs = 400
+    elif n_samples >= 50:
+        max_epochs = 480
+    else:
+        max_epochs = 560
+    max_epochs *= (320 / crop_size) ** 0.5
+    return int(max_epochs - max_epochs % 20)
+
 
 # Description of the training augmentation pipeline, stored under the
 # sidecar's 'transforms' key as the reference stores the repr of its Compose.

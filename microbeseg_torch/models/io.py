@@ -10,6 +10,8 @@ largest DUNet kernel (3*3*1024*1024 f32, ~38 MB) stays far below that, so
 chunked arrays are refused rather than supported.  ``write_msgpack`` encodes
 the same subset, and ``save_model`` writes a ``.ckpt`` and sidecar that this
 module and the JAX package both load.
+
+Training snapshots (``save_train_state``) are this package's own format.
 """
 
 from __future__ import annotations
@@ -190,15 +192,23 @@ def write_msgpack(obj: Any) -> bytes:
     raise TypeError(f"cannot encode {type(obj).__name__} as msgpack")
 
 
-def save_model(model: torch.nn.Module, cfg: TrainConfig,
-               path_models: Union[str, Path]) -> Path:
-    """Write ``<run_name>.ckpt`` (the flax variable tree of ``model``) and
-    its JSON sidecar under ``path_models``; returns the ``.ckpt`` path."""
-    path_models = Path(path_models)
-    path_models.mkdir(parents=True, exist_ok=True)
-    ckpt = path_models / f"{cfg.run_name}{CKPT_SUFFIX}"
-    ckpt.write_bytes(write_msgpack(
-        variables_from_state_dict(model.state_dict())))
+def save_checkpoint(model: Union[torch.nn.Module, Dict[str, torch.Tensor]],
+                    path: Union[str, Path]) -> Path:
+    """Write the flax variable tree of a model (or of its ``state_dict``)
+    as ``<path>.ckpt``; returns that path."""
+    path = Path(path)
+    if path.suffix != CKPT_SUFFIX:
+        path = path.with_suffix(CKPT_SUFFIX)
+    sd = model.state_dict() if isinstance(model, torch.nn.Module) else model
+    path.write_bytes(write_msgpack(variables_from_state_dict(sd)))
+    return path
+
+
+def write_sidecar(cfg: TrainConfig, path_models: Union[str, Path],
+                  extra: Optional[dict] = None) -> Path:
+    """Write ``<run_name>.json`` under ``path_models``: the keys of the JAX
+    package's ``write_sidecar``, with ``extra`` (training times, epochs)
+    merged in."""
     sidecar = {
         "architecture": list(cfg.model.architecture),
         "batch_size": cfg.batch_size, "label_type": cfg.label_type,
@@ -207,9 +217,63 @@ def save_model(model: torch.nn.Module, cfg: TrainConfig,
         "transforms": AUGMENTATION_TRANSFORMS, "max_epochs": cfg.max_epochs,
         "framework": "microbeseg_torch",
         "compute_dtype": cfg.compute_dtype, "seed": cfg.seed}
-    (path_models / f"{cfg.run_name}.json").write_text(
-        json.dumps(sidecar, ensure_ascii=False, indent=2), encoding="utf-8")
+    if extra:
+        sidecar.update(extra)
+    out = Path(path_models) / f"{cfg.run_name}.json"
+    out.write_text(json.dumps(sidecar, ensure_ascii=False, indent=2),
+                   encoding="utf-8")
+    return out
+
+
+def save_model(model: torch.nn.Module, cfg: TrainConfig,
+               path_models: Union[str, Path]) -> Path:
+    """Write ``<run_name>.ckpt`` (the flax variable tree of ``model``) and
+    its JSON sidecar under ``path_models``; returns the ``.ckpt`` path."""
+    path_models = Path(path_models)
+    path_models.mkdir(parents=True, exist_ok=True)
+    ckpt = save_checkpoint(model, path_models / cfg.run_name)
+    write_sidecar(cfg, path_models)
     return ckpt
+
+
+TRAIN_STATE_SUFFIX = ".train_state"
+
+
+def save_train_state(arrays: Dict[str, Any], host: Dict[str, Any],
+                     stem: Union[str, Path]) -> Path:
+    """A resumable mid-training snapshot: ``<stem>.train_state`` holds
+    ``arrays`` (the model's and the optimizer's state dicts and the
+    augmentation generator's state) through ``torch.save``, a format of
+    this package that the JAX package cannot read; ``<stem>.train_state.
+    json`` holds the loop's ``host`` state under the JAX package's keys
+    (``epoch``, ``best_loss``, ``epochs_wo_improvement``, ``train_hist``,
+    ``val_hist``, ``np_rng``, ``sched``, ``second_run``, ``cfg``)."""
+    stem = Path(stem)
+    path = stem.with_suffix(TRAIN_STATE_SUFFIX)
+    torch.save(arrays, path)
+    stem.with_suffix(TRAIN_STATE_SUFFIX + ".json").write_text(
+        json.dumps(host))
+    return path
+
+
+def load_train_state(stem: Union[str, Path]
+                     ) -> Optional[Tuple[Dict[str, Any], Dict[str, Any]]]:
+    """(arrays on the CPU, host) of a ``save_train_state`` snapshot, or None
+    if there is none.  ``load_state_dict`` moves the arrays to the model's
+    device."""
+    stem = Path(stem)
+    path = stem.with_suffix(TRAIN_STATE_SUFFIX)
+    meta = stem.with_suffix(TRAIN_STATE_SUFFIX + ".json")
+    if not (path.is_file() and meta.is_file()):
+        return None
+    arrays = torch.load(path, map_location="cpu", weights_only=False)
+    return arrays, json.loads(meta.read_text())
+
+
+def peek_train_state(stem: Union[str, Path]) -> Optional[Dict[str, Any]]:
+    """Host state of a snapshot without touching the array payload."""
+    meta = Path(stem).with_suffix(TRAIN_STATE_SUFFIX + ".json")
+    return json.loads(meta.read_text()) if meta.is_file() else None
 
 
 def load_variables(path: Union[str, Path]) -> Dict[str, Any]:

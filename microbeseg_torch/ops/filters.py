@@ -1,5 +1,6 @@
 """Separable gaussian filtering (scipy ``gaussian_filter`` defaults:
-truncate 4, mode 'reflect' = symmetric padding).
+truncate 4, mode 'reflect' = symmetric padding), and the training blur with
+one sigma per sample (``gaussian_blur_dynamic``).
 
 Written as the JAX package's sum of shifted slices, in the same tap order
 and in float32: a ``conv2d`` would sum in another order, and a seed
@@ -56,6 +57,29 @@ def gaussian_filter(img: torch.Tensor, sigma: float = 0.5,
         return img
     k = _gaussian_kernel1d(float(sigma), radius, img.device)
     x = img.to(torch.float32)
+    x = _correlate1d(x, k, x.ndim - 2, radius)
+    x = _correlate1d(x, k, x.ndim - 1, radius)
+    return x.to(img.dtype)
+
+
+def gaussian_blur_dynamic(img: torch.Tensor, sigma: torch.Tensor,
+                          radius: int = 9) -> torch.Tensor:
+    """Gaussian blur of the trailing two axes of a batch with one sigma per
+    sample (the Blur augmentation): a fixed ``2 * radius + 1`` support,
+    weights from each sigma.
+
+    Like ``microbeseg_tpu/ops/filters.py::gaussian_blur_dynamic`` this
+    blurs the *trailing two* axes: on (B, H, W, 1), as the training
+    pipeline gives it, that is the width and the size-1 channel axis, so
+    the blur is horizontal only (the channel pass multiplies by the taps'
+    sum)."""
+    x = img.to(torch.float32)
+    ones = [1] * (x.ndim - 1)
+    s = sigma.to(torch.float32).reshape(-1, *ones)               # (B, 1..)
+    t = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                     device=x.device).view(-1, 1, *ones)          # (K, 1..)
+    phi = torch.exp(-0.5 / (s * s) * t * t)                       # (K, B, 1..)
+    k = phi / torch.sum(phi, dim=0, keepdim=True)
     x = _correlate1d(x, k, x.ndim - 2, radius)
     x = _correlate1d(x, k, x.ndim - 1, radius)
     return x.to(img.dtype)

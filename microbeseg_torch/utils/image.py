@@ -1,8 +1,9 @@
-"""Host-side image utilities: min/max normalization, bucket padding and the
-border correction of masks before scoring."""
+"""Host-side image utilities: min/max normalization, bucket padding, the
+border correction of masks before scoring, and numbered file names."""
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
@@ -51,3 +52,14 @@ def border_correction(mask: np.ndarray, border_width: int = 10) -> np.ndarray:
     keep = np.unique(foi)
     out = np.where(np.isin(mask, keep), mask, 0)
     return out.astype(mask.dtype)
+
+
+def unique_path(directory: Path, name_pattern: str) -> Path:
+    """First non-existing ``directory / name_pattern.format(counter)``,
+    counting from 1."""
+    counter = 0
+    while True:
+        counter += 1
+        path = Path(directory) / name_pattern.format(counter)
+        if not path.exists():
+            return path

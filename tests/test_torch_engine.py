@@ -436,7 +436,9 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "ops.kernels.matmul", "evaluation.metrics",
                 "evaluation.evaluator", "cli.evaluate", "ops.morphology",
                 "ops.edt", "ops.regionprops", "ops.labelgen",
-                "training.workers"):
+                "training.workers", "ops.filters", "training.losses",
+                "training.schedules", "training.optimizers", "training.data",
+                "training.trainer", "cli.train"):
         assert (REPO / "microbeseg_torch" / (mod.replace(".", "/") + ".py")
                 ).is_file()
     banned = {"jax", "flax", "msgpack", "triton", "pandas", "microbeseg_tpu"}
