@@ -129,11 +129,44 @@
    ``--train-quality`` it also trains the protocol's model (batch 8, 60
    epochs) and scores AJI+ on frames 40-49 with the ``Evaluator``.
 
+12. Serving: ``cli.serve`` (``build_parser``, ``engine_from_args``,
+   ``serve``) on a checkpoint of the flagship that ``save_model`` wrote,
+   batch 16, on 127.0.0.1:0, with counters set to 0 before the requests and
+   read after: 3 sequential ``.npy`` requests of 16 fresh 256^2 crops, the
+   glutamicum frames 40-49 as one multi-page TIFF (``format=tif``, their
+   own thresholds as query parameters), 4 concurrent clients x 2 requests,
+   ``/healthz``, one 400 and one 413.  Checks that every response equals
+   ``segment`` of its frames on the same engine bit for bit and its
+   ``X-Instances``, that K1's one-block kernel and ``ranked_components``
+   launched (and not the cluster kernel, the K2 sweep, the general K4 or
+   the watershed route), and that no out-of-memory fallback was taken.
+   Times ``segment`` alone (and a fresh thread's first call), then median
+   and p90 request latency and crops/s with 1 client (20 requests) and with
+   4 (5 each), the clients processes of their own.
+13. The store: a ``LocalStore`` with frames 40-49 as 10 images and one
+   2D+t image of the same 10 frames; ``cli.infer_store --local_store
+   --dataset -m -r`` (counters from 0).  Checks that every image has ROIs
+   and ``inference_model``, that the written masks equal ``segment``'s,
+   that the rasterised ROIs agree with them on more than 0.97 of a frame
+   (the bar of ``tests/test_client.py``), that a serial ``infer_dataset``
+   leaves the same ROI strings, that the native contour library loaded,
+   that ``analyze_dataset`` on the card counts the ROIs of each frame and
+   its floats are within 1e-5 of the CPU's, that ``export_results`` writes
+   5 files an image, and that ``CropGenerator``'s pre-labels (counters
+   from 0) are those of ``segment`` on the crops.  Times ms a frame by
+   stage on a fresh store: planes, ``segment``, tracing + upload, analysis.
+14. The watershed route: ``distance_postprocessing(max_seeds=2**24)`` on 16
+   crops' predictions and ``flood_or_fallback`` at 768^2 with labels above
+   4095 and 200 levels, each on the card, counted once as
+   ``watershed_route``, each equal to the CPU's ``watershed`` on the same
+   inputs; timed beside the packed route.  The route must be 0 on every
+   main path.
+
 The next-to-last line of stdout is a JSON object with one entry per kernel.
 Its ``launches`` are those of the full-width paths' own runs (steps 4, 5, 7
-without the narrow model, 8, 9, 10 and 11); what the two side runs launched
-(K3 and the general K4 as the labelling function in step 4, the narrow
-model in step 7) stands apart as ``side_run_launches``.  Each wrapper's host enqueue time and
+without the narrow model, 8, 9, 10, 11, 12 and 13); what the side runs
+launched (K3 and the general K4 as the labelling function in step 4, the
+narrow model in step 7, step 14) stands apart as ``side_run_launches``.  Each wrapper's host enqueue time and
 the device time of every kernel it launches (``torch.profiler``) stand under
 ``host_ms`` and ``device_us``.  The last line is ``{"ok": true, "device":
 {...}}``.  Any failure raises and
@@ -1086,6 +1119,9 @@ def driven_segment(engine, frames, th_cell, th_seed, must_launch):
     if launches["flood_tiled_grid"]:
         raise AssertionError("the first port's K2 sweep ran on the "
                              f"{frames.shape[1]}^2 path")
+    if launches["watershed_route"]:
+        raise AssertionError("the watershed route ran on the "
+                             f"{frames.shape[1]}^2 path")
     if engine.oom_count:
         raise AssertionError(f"{engine.oom_count} out-of-memory fallbacks")
     if masks.shape != frames.shape or masks.dtype != np.uint16:
@@ -1694,6 +1730,643 @@ def cli_path(dev, report, model, thresholds):
 
 
 REAL = Path(__file__).resolve().parent / "data"
+
+
+# --- serving, the store and the watershed route (phases 12-14) ------------
+
+GLUT_TEST = range(40, 50)
+
+
+def glutamicum_test_frames():
+    """Frames 40-49 of ``data/real_glutamicum`` as stored (as the
+    evaluation phase reads them)."""
+    from microbeseg_torch.utils.tiff import imread_page
+
+    glut = REAL / "real_glutamicum"
+    return np.stack([imread_page(glut / f"img_{i:02d}.tif", 0)
+                     for i in GLUT_TEST]).astype(np.uint16)
+
+
+def require_launches(launches, must, where):
+    """Raise unless every kernel of ``must`` launched, and no kernel or route
+    that the main paths never take did."""
+    for name in must:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on {where}")
+    for name in ("flood_packed_cluster", "flood_tiled_grid",
+                 "sequentialize_components", "watershed_route"):
+        if launches[name]:
+            raise AssertionError(f"{name} ran on {where}: {launches}")
+
+
+def npy_bytes(arr) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, arr, allow_pickle=False)
+    return buf.getvalue()
+
+
+def tif_bytes(frames) -> bytes:
+    import io
+
+    from microbeseg_torch.utils.tiff import _pil
+
+    pil = [_pil().fromarray(f) for f in frames]
+    buf = io.BytesIO()
+    pil[0].save(buf, format="TIFF", save_all=True, append_images=pil[1:])
+    return buf.getvalue()
+
+
+def http_call(addr, method, path, body=b"", headers=None):
+    """One request on its own connection -> (status, headers, body, s)."""
+    from http.client import HTTPConnection
+
+    t0 = time.perf_counter()
+    conn = HTTPConnection(*addr, timeout=300)
+    try:
+        conn.putrequest(method, path)
+        hdrs = {"Content-Length": str(len(body))} if method == "POST" else {}
+        hdrs.update(headers or {})
+        for k, v in hdrs.items():
+            conn.putheader(k, v)
+        conn.endheaders()
+        if body and "Content-Length" not in (headers or {}):
+            conn.send(body)
+        resp = conn.getresponse()
+        out = (resp.status, dict(resp.getheaders()), resp.read())
+    finally:
+        conn.close()
+    return out + (time.perf_counter() - t0,)
+
+
+def response_masks(res):
+    """uint16 masks of a 200 response, checked against its X-Instances."""
+    import io
+
+    status, headers, data, _ = res
+    if status != 200:
+        raise AssertionError(f"status {status}: {data[:200]!r}")
+    if headers["Content-Type"] == "image/tiff":
+        from microbeseg_torch.utils.tiff import _pil
+
+        with _pil().open(io.BytesIO(data)) as im:
+            frames = []
+            for i in range(getattr(im, "n_frames", 1)):
+                im.seek(i)
+                frames.append(np.asarray(im))
+        masks = np.stack(frames)
+    else:
+        masks = np.load(io.BytesIO(data), allow_pickle=False)
+    counts = [int(c) for c in headers["X-Instances"].split(",")]
+    if counts != [int(m.max()) for m in masks]:
+        raise AssertionError(f"X-Instances {counts} against the masks")
+    return masks
+
+
+def concurrently(addr, payloads, path="/segment"):
+    """One thread per client, each posting its payloads in turn ->
+    ({(client, k): result}, wall seconds)."""
+    import threading
+
+    results = {}
+
+    def client(i):
+        for k, body in enumerate(payloads[i]):
+            results[i, k] = http_call(addr, "POST", path, body)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(payloads))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise AssertionError("a serve client hung")
+    return results, time.perf_counter() - t0
+
+
+# a serving client: posts one body n times in turn, from a start time, and
+# prints its latencies (stdlib only, so it starts in tens of milliseconds)
+SERVE_CLIENT = r"""
+import http.client, json, sys, time
+host, port, path, n, go = sys.argv[1:6]
+body = open(path, "rb").read()
+while time.time() < float(go):
+    time.sleep(0.001)
+lat = []
+for _ in range(int(n)):
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection(host, int(port), timeout=300)
+    conn.request("POST", "/segment", body=body)
+    resp = conn.getresponse()
+    resp.read()
+    conn.close()
+    if resp.status != 200:
+        sys.exit(f"status {resp.status}")
+    lat.append(time.perf_counter() - t0)
+print(json.dumps({"lat": lat, "end": time.time()}))
+"""
+
+
+def client_processes(addr, body_path, n_clients, n_requests):
+    """Serving clients as processes of their own, so that they take no share
+    of the daemon's interpreter: each posts ``body_path`` ``n_requests``
+    times in turn, all from one start time -> (latencies s, wall s)."""
+    go = time.time() + 2.0
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SERVE_CLIENT, addr[0], str(addr[1]),
+         str(body_path), str(n_requests), repr(go)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for _ in range(n_clients)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"serve client: {err[-500:]}")
+            outs.append(json.loads(out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return ([x for o in outs for x in o["lat"]],
+            max(o["end"] for o in outs) - go)
+
+
+def timed_fn(into: list, fn):
+    """``fn``, appending the seconds of each call to ``into``."""
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            into.append(time.perf_counter() - t0)
+    return call
+
+
+def timed_call(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def pct(values, q):
+    return float(np.percentile(np.asarray(values), q))
+
+
+def serve_path(dev, report, model):
+    """Phase 12: ``cli.serve`` on the flagship checkpoint, batch 16, on
+    127.0.0.1:0; requests over HTTP as clients send them."""
+    import tempfile
+    import threading
+
+    from microbeseg_torch.cli import serve
+    from microbeseg_torch.config import ModelConfig, TrainConfig
+    from microbeseg_torch.inference.engine import InferenceEngine
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models.io import save_model
+
+    phase_t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    warm = blob_frames(rng, B, SIDE)
+    seq = [blob_frames(rng, B, SIDE) for _ in range(3)]
+    conc = [[blob_frames(rng, B, SIDE) for _ in range(2)] for _ in range(4)]
+    glut = glutamicum_test_frames()
+    probe = InferenceEngine(model, "distance", device=dev)
+    th_cell, th_seed = field_thresholds(probe, warm)
+    g_cell, g_seed = field_thresholds(probe, glut)
+    glut_path = (f"/segment?format=tif&th_cell={g_cell!r}"
+                 f"&th_seed={g_seed!r}")
+    del probe
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = save_model(model, TrainConfig(model=ModelConfig(),
+                                             run_name="serve_01"),
+                          Path(tmp) / "models")
+        args = serve.build_parser().parse_args([
+            "--model", str(ckpt), "-b", str(B), "-t", repr(th_cell),
+            repr(th_seed), "--port", "0"])
+        engine = serve.engine_from_args(args)
+        httpd = serve.serve(engine, {"model": [str(ckpt)],
+                                     "label_type": engine.label_type},
+                            "127.0.0.1", 0,
+                            max_body_bytes=args.max_body_mb * 1024 * 1024)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            addr = httpd.server_address
+            response_masks(http_call(addr, "POST", "/segment",
+                                     npy_bytes(warm)))   # warm-up
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            seq_res = [http_call(addr, "POST", "/segment", npy_bytes(f))
+                       for f in seq]
+            glut_res = http_call(addr, "POST", glut_path, tif_bytes(glut))
+            conc_res, _ = concurrently(
+                addr, [[npy_bytes(f) for f in c] for c in conc])
+            health = http_call(addr, "GET", "/healthz")
+            bad = http_call(addr, "POST", "/segment", b"not an image")
+            huge = http_call(addr, "POST", "/segment", b"", headers={
+                "Content-Length": str(args.max_body_mb * 1024 * 1024 + 1)})
+            driven_s = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            require_launches(launches, ("flood_packed", "ranked_components"),
+                             "the serve path")
+            if engine.oom_count:
+                raise AssertionError(f"serve: {engine.oom_count} "
+                                     "out-of-memory fallbacks")
+            if (health[0], bad[0], huge[0]) != (200, 400, 413) or json.loads(
+                    health[2])["label_type"] != "distance":
+                raise AssertionError(f"serve: /healthz {health[0]}, bad "
+                                     f"payload {bad[0]}, oversized {huge[0]}")
+            # every response against segment of its frames on this engine
+            checked = [(r, f, th_cell, th_seed) for r, f in zip(seq_res, seq)]
+            checked.append((glut_res, glut, g_cell, g_seed))
+            checked += [(conc_res[i, k], conc[i][k], th_cell, th_seed)
+                        for i in range(4) for k in range(2)]
+            n_inst = []
+            for res, frames, tc, ts in checked:
+                got = response_masks(res)
+                want = engine.segment(frames, th_cell=tc, th_seed=ts)
+                if not np.array_equal(got, want):
+                    raise AssertionError(
+                        f"serve: a response differs from segment on "
+                        f"{(got != want).sum()} px")
+                n_inst += [int(m.max()) for m in got]
+            if min(n_inst) < 1:
+                raise AssertionError(f"serve: frames without instances: "
+                                     f"{n_inst}")
+
+            # times: segment alone, then 1 and 4 clients on the same crops
+            body = npy_bytes(seq[0])
+            seg_s = []
+            for _ in range(10):
+                t1 = time.perf_counter()
+                engine.segment(seq[0])
+                seg_s.append(time.perf_counter() - t1)
+            # a fresh thread's first segment: why the daemon runs its
+            # engine on one long-lived thread (cuDNN's per-thread caches)
+            fresh_s = []
+            for _ in range(3):
+                worker = threading.Thread(target=lambda: fresh_s.append(
+                    timed_call(lambda: engine.segment(seq[0]))))
+                worker.start()
+                worker.join()
+            body_path = Path(tmp) / "crops.npy"
+            body_path.write_bytes(body)
+            # 1 client, with the daemon's side of each request timed: the
+            # handler looks up these three at each call
+            split = {"decode": [], "segment": [], "encode": []}
+            plain = (serve.decode_payload, serve.encode_masks)
+            serve.decode_payload = timed_fn(split["decode"], plain[0])
+            serve.encode_masks = timed_fn(split["encode"], plain[1])
+            engine.segment = timed_fn(split["segment"], engine.segment)
+            try:
+                one, _ = client_processes(addr, body_path, 1, 20)
+            finally:
+                serve.decode_payload, serve.encode_masks = plain
+                del engine.segment
+            lat4, wall4 = client_processes(addr, body_path, 4, 5)
+            glut_s = [http_call(addr, "POST", glut_path, tif_bytes(glut))[3]
+                      for _ in range(3)]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=10)
+    out = dict(
+        launches=launches, driven_s=driven_s, requests=3 + 1 + 8 + 3,
+        instances_per_frame=[min(n_inst), max(n_inst)],
+        thresholds=dict(crops=[th_cell, th_seed], glutamicum=[g_cell, g_seed]),
+        segment_ms=1e3 * statistics.median(seg_s),
+        segment_crops_per_s=B / statistics.median(seg_s),
+        segment_fresh_thread_ms=1e3 * statistics.median(fresh_s),
+        one_client=dict(median_ms=1e3 * statistics.median(one),
+                        p90_ms=1e3 * pct(one, 90),
+                        crops_per_s=B * len(one) / sum(one),
+                        daemon_median_ms={k: 1e3 * statistics.median(v)
+                                          for k, v in split.items()}),
+        four_clients=dict(median_ms=1e3 * statistics.median(lat4),
+                          p90_ms=1e3 * pct(lat4, 90),
+                          crops_per_s=B * len(lat4) / wall4),
+        glutamicum_tif_ms=1e3 * statistics.median(glut_s),
+        phase_s=time.perf_counter() - phase_t0)
+    report["serve_path"] = out
+    one, four = out["one_client"], out["four_clients"]
+    daemon = {k: round(v, 3) for k, v in one["daemon_median_ms"].items()}
+    print(f"serve: {out['requests']} requests (3 x 16 crops .npy, 10 "
+          f"glutamicum frames as TIFF, 4 clients x 2, /healthz, a 400 and a "
+          f"413) equal segment bit for bit; launches flood_packed "
+          f"{launches['flood_packed']}, ranked_components "
+          f"{launches['ranked_components']}; segment alone "
+          f"{out['segment_ms']:.3f} ms = {out['segment_crops_per_s']:.1f} "
+          f"crops/s (a fresh thread's first call "
+          f"{out['segment_fresh_thread_ms']:.3f} ms); 1 client "
+          f"{one['median_ms']:.3f} / p90 {one['p90_ms']:.3f} ms = "
+          f"{one['crops_per_s']:.1f} crops/s (the daemon's medians {daemon} "
+          f"ms); 4 clients {four['median_ms']:.3f} / p90 "
+          f"{four['p90_ms']:.3f} ms = {four['crops_per_s']:.1f} crops/s; "
+          f"glutamicum TIFF request {out['glutamicum_tif_ms']:.3f} ms; "
+          f"phase {out['phase_s']:.1f} s", flush=True)
+    return launches
+
+
+def csv_rows(path):
+    import csv
+
+    with open(path, newline="") as fh:
+        rows = list(csv.reader(fh))
+    return rows[0], rows[1:]
+
+
+def store_path(dev, report, model):
+    """Phase 13: the store-backed path: ``cli.infer_store`` on a LocalStore
+    of glutamicum frames 40-49 (10 images and one 2D+t image of the same
+    frames), then ``analyze_dataset`` on the card, ``export_results`` and
+    ``CropGenerator``'s pre-labels."""
+    import tempfile
+
+    from microbeseg_torch.cli import infer_store
+    from microbeseg_torch.cli.infer_local import build_engine
+    from microbeseg_torch.client import native, workers
+    from microbeseg_torch.client.store import LocalStore
+    from microbeseg_torch.config import InferConfig, ModelConfig, TrainConfig
+    from microbeseg_torch.inference.engine import InferenceEngine
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models.io import save_model
+    from microbeseg_torch.utils.tiff import imread
+
+    phase_t0 = time.perf_counter()
+    glut = glutamicum_test_frames()
+    th_cell, th_seed = field_thresholds(
+        InferenceEngine(model, "distance", device=dev), glut)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = save_model(model, TrainConfig(model=ModelConfig(),
+                                             run_name="store_01"),
+                          tmp / "models")
+
+        def fresh_store(name):
+            store = LocalStore(tmp / name)
+            did = store.create_dataset("glutamicum_40_49")
+            for i, f in zip(GLUT_TEST, glut):
+                store.upload_image(did, f"glut_{i}.tif", f)
+            store.upload_image(did, "glut_series.tif", glut)
+            return store, did
+
+        store, did = fresh_store("store")
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rc = infer_store.main([
+            "--local_store", str(tmp / "store"), "--dataset", str(did),
+            "-m", str(ckpt), "-r", str(tmp / "masks"),
+            "-t", repr(th_cell), repr(th_seed)])
+        cli_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"cli.infer_store: exit {rc}")
+        require_launches(launches, ("flood_packed", "ranked_components"),
+                         "the store path")
+        lib = native.get_lib()
+        if lib is None:
+            raise AssertionError("the native contour library did not load")
+
+        engine = build_engine([ckpt], InferConfig(th_cell=th_cell,
+                                                  th_seed=th_seed), device=dev)
+        refs = store.list_images(did)
+        ids = [r.image_id for r in refs]
+        agree, n_rois, masks_by_id = [], {}, {}
+        for ref in refs:
+            meta = store.get_map_annotation(ref.image_id)
+            polys = store.get_polygons(ref.image_id)
+            if meta.get("inference_model") != "store_01" or not polys:
+                raise AssertionError(f"store: image {ref.name} has "
+                                     f"{len(polys)} ROIs, meta {meta}")
+            planes = np.stack([store.get_plane(ref.image_id, 0, 0, t)
+                               for t in range(ref.size_t)])
+            masks = engine.segment(planes)
+            written = imread(tmp / "masks" / (
+                f"mask_{Path(ref.name).stem}_channel0.tif")).reshape(
+                    masks.shape)
+            if not np.array_equal(written, masks):
+                raise AssertionError(f"store: {ref.name}: written masks "
+                                     "differ from segment")
+            masks_by_id[ref.image_id] = masks
+            for t in range(ref.size_t):
+                back = workers._rasterize_rois(polys, t, masks.shape[1:])
+                agree.append(float(((back > 0) == (masks[t] > 0)).mean()))
+                n_rois[ref.image_id, t] = sum(p.t == t for p in polys)
+        if min(agree) <= 0.97:   # tests/test_client.py's roundtrip bar
+            raise AssertionError(f"store: rasterised ROIs agree with the "
+                                 f"masks on {min(agree):.4f} of a frame")
+        # the serial run leaves the same ROI strings as the pipelined CLI
+        serial, sdid = fresh_store("serial")
+        workers.infer_dataset(serial, [r.image_id for r in
+                                       serial.list_images(sdid)],
+                              engine, "store_01", pipeline=False)
+        for a, b in zip(ids, [r.image_id for r in serial.list_images(sdid)]):
+            if ([p.points for p in store.get_polygons(a)]
+                    != [p.points for p in serial.get_polygons(b)]):
+                raise AssertionError("store: the serial run's ROIs differ "
+                                     "from the pipelined run's")
+
+        # analysis on the card against the port on the CPU
+        card = workers.analyze_dataset(store, ids, tmp / "analysis_card")
+        cpu = workers.analyze_dataset(store, ids, tmp / "analysis_cpu",
+                                      device="cpu")
+        worst, counts = 0.0, []
+        for iid, a, b in zip(ids, card, cpu):
+            head, rows_a = csv_rows(a)
+            _, rows_b = csv_rows(b)
+            for ra, rb in zip(rows_a, rows_b):
+                t, n = int(ra[0]), int(ra[1])
+                if ra[:2] != rb[:2] or n != n_rois[iid, t]:
+                    raise AssertionError(
+                        f"analysis of image {iid} frame {t}: count {n}, "
+                        f"CPU {rb[1]}, ROIs {n_rois[iid, t]}")
+                fa = np.array(ra[2:], float)
+                fb = np.array(rb[2:], float)
+                worst = max(worst, float(np.max(np.abs(fa - fb)
+                                                / np.maximum(np.abs(fb),
+                                                             1e-30))))
+                counts.append(n)
+        if worst > 1e-5:
+            raise AssertionError(f"analysis: card vs CPU {worst:.3g} relative")
+
+        workers.export_results(store, ids, tmp / "results")
+        n_files = len(list((tmp / "results").iterdir()))
+        if n_files != 5 * len(ids):
+            raise AssertionError(f"export_results wrote {n_files} files")
+
+        # CropGenerator's pre-labels, counted from 0
+        gen = workers.CropGenerator(store, crop_size=128, engine=engine,
+                                    seed=0)
+        items = gen.crop_list(did)[:4]
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        crops = [c for it in items for c in gen.next_crops(*it)]
+        crop_launches = dict(_build.LAUNCHES)
+        require_launches(crop_launches, ("flood_packed", "ranked_components"),
+                         "CropGenerator")
+        for c in crops:
+            want = [r.points for r in workers._mask_to_rois(
+                engine.segment(c.img))]
+            if not want or [r.points for r in c.rois] != want:
+                raise AssertionError("CropGenerator: pre-labels differ from "
+                                     "segment of the crop")
+
+        # ms a frame by stage, on a fresh store, the card drained between
+        timed, tdid = fresh_store("timed")
+        stage = dict(planes=0.0, segment=0.0, trace_upload=0.0)
+        n_frames = 0
+        for ref in timed.list_images(tdid):
+            t1 = time.perf_counter()
+            planes = np.stack([timed.get_plane(ref.image_id, 0, 0, t)
+                               for t in range(ref.size_t)])
+            t2 = time.perf_counter()
+            masks = engine.segment(planes)
+            t3 = time.perf_counter()
+            rois = [r for t in range(ref.size_t)
+                    for r in workers._mask_to_rois(masks[t], t=t)]
+            timed.add_polygons(ref.image_id, rois)
+            timed.set_map_annotation(ref.image_id,
+                                     {"inference_model": "store_01"})
+            t4 = time.perf_counter()
+            stage["planes"] += t2 - t1
+            stage["segment"] += t3 - t2
+            stage["trace_upload"] += t4 - t3
+            n_frames += ref.size_t
+        t5 = time.perf_counter()
+        workers.analyze_dataset(timed, [r.image_id for r in
+                                        timed.list_images(tdid)],
+                                tmp / "analysis_timed")
+        stage["analysis"] = time.perf_counter() - t5
+    ms = {k: 1e3 * v / n_frames for k, v in stage.items()}
+    ms_image = {k: 1e3 * v / len(ids) for k, v in stage.items()}
+    out = dict(launches=launches, crop_generator_launches=crop_launches,
+               cli_s=cli_s, cli_ms_per_frame=1e3 * cli_s / n_frames,
+               frames=n_frames, images=len(ids), native_library=lib._name,
+               roi_mask_agreement_min=min(agree),
+               cells_per_frame=[min(counts), max(counts)],
+               analysis_card_vs_cpu_rel=worst, crops=len(crops),
+               ms_per_frame_by_stage=ms, ms_per_image_by_stage=ms_image,
+               thresholds=[th_cell, th_seed],
+               phase_s=time.perf_counter() - phase_t0)
+    report["store_path"] = out
+    print(f"store: cli.infer_store on {len(ids)} images ({n_frames} frames "
+          f"of 256^2) in {cli_s:.2f} s with the checkpoint load; native "
+          f"contour library loaded; masks equal segment; ROIs agree with "
+          f"them on >= {min(agree):.4f} of a frame; serial ROIs equal the "
+          f"pipelined; analysis on the card: counts equal the ROIs, floats "
+          f"within {worst:.3g} of the CPU; export_results "
+          f"{5 * len(ids)} files; {len(crops)} CropGenerator crops "
+          f"pre-labelled as segment; ms a frame by stage "
+          f"{ {k: round(v, 3) for k, v in ms.items()} }, an image "
+          f"{ {k: round(v, 3) for k, v in ms_image.items()} }; launches "
+          f"flood_packed {launches['flood_packed']}, ranked_components "
+          f"{launches['ranked_components']}; phase {out['phase_s']:.1f} s",
+          flush=True)
+    return launches, crop_launches
+
+
+def watershed_route_path(dev, report, model, thresholds):
+    """Phase 14: labels beyond the packed key take the plain ``watershed``
+    flood on the card, as JAX takes its XLA flood: once through
+    ``distance_postprocessing(max_seeds=2**24)`` on crop predictions, once
+    through ``flood_or_fallback`` at 768^2 with 24-bit labels and 200
+    levels.  Each is held exactly against the CPU's ``watershed`` on the
+    same inputs."""
+    from microbeseg_torch.inference.engine import InferenceEngine
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.ops import cc
+    from microbeseg_torch.ops import postprocessing as pp
+    from microbeseg_torch.ops.kernels import flood
+    from microbeseg_torch.ops.watershed import watershed
+
+    phase_t0 = time.perf_counter()
+    th_cell, th_seed = thresholds
+    rng = np.random.default_rng(14)
+    engine = InferenceEngine(model, "distance", device=dev)
+    border, cell = engine._predict_raw_dev(blob_frames(rng, B, SIDE))
+    captured = []
+
+    def recording(value, markers, mask, n_levels):
+        captured.append((value, markers, mask, n_levels))
+        return watershed(value, markers, mask, n_levels=n_levels)
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    pp.watershed = recording
+    try:
+        crops = pp.distance_postprocessing(border, cell, th_seed, th_cell,
+                                           max_seeds=2 ** 24)
+    finally:
+        pp.watershed = watershed
+    crop_launches = dict(_build.LAUNCHES)
+    value, markers, mask, n_levels = captured[0]
+    t0 = time.perf_counter()
+    ref = watershed(value.cpu(), markers.cpu(), mask.cpu(),
+                    n_levels=n_levels)
+    crop_cpu_s = time.perf_counter() - t0
+    crops = crops.to(torch.int32)
+    if (crop_launches["watershed_route"] != 1
+            or crop_launches["flood_packed"]
+            or not torch.equal(crops.cpu(), ref)):
+        raise AssertionError(f"watershed route on crops: launches "
+                             f"{crop_launches}, labels differ from the CPU "
+                             f"on {(crops.cpu() != ref).sum()} px")
+    packed = pp.distance_postprocessing(border, cell, th_seed, th_cell,
+                                        max_seeds=256)
+    same_as_packed = float((packed.to(torch.int32) == crops).float().mean())
+    crop_ms = cuda_ms(lambda: pp.distance_postprocessing(
+        border, cell, th_seed, th_cell, max_seeds=2 ** 24), 3, warmup=1)
+    packed_ms = cuda_ms(lambda: pp.distance_postprocessing(
+        border, cell, th_seed, th_cell, max_seeds=256), 10)
+
+    # 768^2, 200 levels, markers above 4095 (24-bit labels): no packed key
+    side, levels, max_label = flood.MAX_SIDE, 200, (1 << 24) - 2
+    field = torch.from_numpy(big_blob_fields(rng, 1, (side, side), 500)).to(dev)
+    fmask = field > 0.15
+    ranks = cc.ranked_components(field > 0.7)
+    fmarkers = torch.where(ranks > 0, ranks + 5000, 0).to(torch.int32)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    big = flood.flood_or_fallback(-field, fmarkers, fmask, n_levels=levels,
+                                  max_label=max_label)
+    big_launches = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    big_ref = watershed(-field.cpu(), fmarkers.cpu(), fmask.cpu(),
+                        n_levels=levels)
+    big_cpu_s = time.perf_counter() - t0
+    if (big_launches["watershed_route"] != 1 or big_launches["flood_packed"]
+            or big_launches["flood_tiled"] or int(big.max()) <= 5000
+            or not torch.equal(big.cpu(), big_ref)):
+        raise AssertionError(f"watershed route at {side}^2: launches "
+                             f"{big_launches}, max label {int(big.max())}, "
+                             f"labels differ from the CPU on "
+                             f"{(big.cpu() != big_ref).sum()} px")
+    big_ms = cuda_ms(lambda: flood.flood_or_fallback(
+        -field, fmarkers, fmask, n_levels=levels, max_label=max_label), 2,
+        warmup=1)
+    out = dict(crop_launches=crop_launches, frame_launches=big_launches,
+               crop_ms=crop_ms, packed_crop_ms=packed_ms,
+               crop_cpu_watershed_s=crop_cpu_s,
+               crop_px_equal_to_packed_route=same_as_packed,
+               frame_ms=big_ms, frame_cpu_watershed_s=big_cpu_s,
+               frame_labels=int((big_ref.unique() > 0).sum()),
+               phase_s=time.perf_counter() - phase_t0)
+    report["watershed_route"] = out
+    print(f"watershed route: distance_postprocessing(max_seeds=2**24) on "
+          f"{B} x {SIDE}^2 on the card {crop_ms:.3f} ms (the packed route "
+          f"{packed_ms:.3f} ms; {same_as_packed:.4f} of the pixels the same), "
+          f"equal to the CPU's watershed ({crop_cpu_s:.2f} s there); "
+          f"flood_or_fallback at {side}^2, {levels} levels, labels above "
+          f"4095: {big_ms:.3f} ms, equal to the CPU's ({big_cpu_s:.2f} s); "
+          f"counted once each; phase {out['phase_s']:.1f} s", flush=True)
+    return crop_launches, big_launches
 
 
 def test_set(root, src, ids):
@@ -2558,6 +3231,9 @@ def main() -> int:
     small_checks(dev, report, model, cpu_model, thresholds)
     int8_launches, narrow_launches = int8_path(dev, report, model, thresholds)
     cli_launches = cli_path(dev, report, model, thresholds)
+    serve_launches = serve_path(dev, report, model)
+    store_launches, crop_gen_launches = store_path(dev, report, model)
+    ws_launches = watershed_route_path(dev, report, model, thresholds)
     eval_launches = eval_path(dev, report, model, args.profile_eval)
     label_launches = labels_path(dev, report)
     train_launches = train_path(dev, report, args.train_quality)
@@ -2567,10 +3243,16 @@ def main() -> int:
     # counted from 0.  The two side runs (K3 + the general K4 as label_fn,
     # the narrow int8 model) are kept apart under side_run_launches.
     driven = [crop_launches, big_launches, *int8_launches, cli_launches,
+              serve_launches, store_launches, crop_gen_launches,
               eval_launches, label_launches, train_launches]
     launches = {k: sum(d[k] for d in driven) for k in _build.LAUNCHES}
+    if launches["watershed_route"]:
+        raise AssertionError("the watershed route ran on a main path")
     side = {k: general_launches[k] + narrow_launches[k]
-            for k in _build.LAUNCHES}
+            + sum(d[k] for d in ws_launches) for k in _build.LAUNCHES}
+    report["launches_by_path"] = dict(zip(
+        ("crops", "frames", "int8_crops", "int8_frame", "cli", "serve",
+         "store", "crop_generator", "eval", "labels", "train"), driven))
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[name],
                     side_run_launches=side[name],

@@ -7,8 +7,9 @@ then training on a local trainset folder with ``train/`` and ``val/`` (and
 
     python -m microbeseg_torch.cli.train --train_dir <trainset> --method distance
 
-``--omero_id`` needs the server-backed store, which the port does not have
-yet (ROADMAP Queue 1 item 11).
+``--omero_id`` downloads the trainset from an OMERO server first
+(``client/store.omero_store_from_args`` + ``client/workers.export_trainset``,
+pre-labelled but uncorrected crops skipped) into ``./training_dataset``.
 """
 
 from __future__ import annotations
@@ -23,8 +24,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="microbeSEG training (PyTorch/CUDA)")
     parser.add_argument("--omero_id", "-id", default=None, type=int,
-                        help="Training dataset id (server-backed store; not "
-                             "in the port yet)")
+                        help="Training dataset id (OMERO)")
     parser.add_argument("--train_dir", default=None, type=str,
                         help="Local trainset directory (train/ + val/ subdirs)")
     parser.add_argument("--batch_size", "-b", default=4, type=int,
@@ -79,10 +79,21 @@ def main(argv=None) -> int:
     if args.train_dir is not None:
         trainset_path = Path(args.train_dir)
     elif args.omero_id is not None:
-        raise NotImplementedError(
-            "--omero_id needs the server-backed store, which the port does "
-            "not have yet (ROADMAP Queue 1 item 11); export the trainset and "
-            "pass --train_dir")
+        from microbeseg_torch.client.store import omero_store_from_args
+        from microbeseg_torch.client.workers import export_trainset
+
+        store = omero_store_from_args(args)
+        print("Downloading data (pre-labeled but not corrected data are skipped)")
+        try:
+            trainset_path = export_trainset(store, args.omero_id,
+                                            Path.cwd() / "training_dataset",
+                                            text_output=print)
+        finally:
+            # label generation + training run for hours; do not hold the
+            # gateway session open past the export
+            store.close()
+        if trainset_path is None:
+            return 1
     else:
         raise ValueError("Provide --train_dir or --omero_id")
 

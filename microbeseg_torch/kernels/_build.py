@@ -38,7 +38,10 @@ LAUNCHES: Dict[str, int] = {"flood_packed": 0, "flood_packed_cluster": 0,
                             "sequentialize_components": 0,
                             "ranked_components": 0,
                             "matmul_int8": 0, "matmul_bf16": 0,
-                            "conv3x3_int8": 0}
+                            "conv3x3_int8": 0,
+                            # not a kernel: the plain watershed flood taken
+                            # for labels the packed key cannot carry
+                            "watershed_route": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

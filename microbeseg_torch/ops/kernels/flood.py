@@ -358,8 +358,8 @@ def flood_or_fallback(value, markers, mask, n_levels: int = 128,
     """Route by frame side and label capacity, as the JAX package does:
     sides up to 768 take ``flood_packed`` with the bits of
     ``packed_label_bits``, larger frames ``flood_tiled``.  Labels the packed
-    key cannot carry take the ``watershed`` flood on the CPU; on the card
-    that flood has no kernel yet, so they raise."""
+    key cannot carry take the ``watershed`` flood, plain PyTorch on every
+    device (JAX's XLA flood there), counted as ``watershed_route``."""
     side = max(value.shape[-2:])
     bits = packed_label_bits(side, n_levels, max_label)
     if bits is not None and side > MAX_SIDE:
@@ -367,10 +367,6 @@ def flood_or_fallback(value, markers, mask, n_levels: int = 128,
     if bits is not None:
         return flood_packed(value, markers, mask, n_levels=n_levels,
                             label_bits=bits)
-    if value.device.type != "cpu":
-        raise NotImplementedError(
-            f"max_label {max_label} with {n_levels} levels does not fit the "
-            "packed key; the card has no kernel for the watershed flood yet "
-            "(ROADMAP Queue 1 item 13)")
     from microbeseg_torch.ops.watershed import watershed
+    _build.LAUNCHES["watershed_route"] += 1
     return watershed(value, markers, mask, n_levels=n_levels)

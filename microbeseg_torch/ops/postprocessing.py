@@ -16,6 +16,7 @@ from typing import Sequence, Union
 
 import torch
 
+from microbeseg_torch.kernels import _build
 from microbeseg_torch.ops import cc
 from microbeseg_torch.ops.filters import gaussian_filter
 from microbeseg_torch.ops.kernels import flood
@@ -67,8 +68,9 @@ def distance_postprocessing(border_prediction: torch.Tensor,
     """Distance-method post-processing of (B, H, W) or (H, W) predictions.
 
     Returns uint16 instance masks.  ``method``: 'auto' = the packed-key
-    flood on CUDA, the 'flood' watershed on the CPU (as the JAX package
-    picks the Pallas flood on accelerators and the XLA flood on the CPU);
+    flood on CUDA, the 'flood' watershed on the CPU and for ``max_seeds``
+    the packed key cannot carry (as the JAX package picks the Pallas flood
+    on accelerators and the XLA flood on the CPU or beyond the key);
     'flood' = the quantised priority flood of ``ops/watershed``; 'pallas' =
     the packed-key flood (kernel K1), named as in the JAX package; 'fast' =
     ``watershed_fast``, drainage labelling and a flood cleanup."""
@@ -116,10 +118,9 @@ def _resolve_method(method: str, dev: torch.device, max_seeds: int) -> str:
             return "flood"
         if max_seeds < _MAX_PACKED:
             return "pallas"
-        raise NotImplementedError(
-            f"max_seeds {max_seeds} does not fit the packed key; the card "
-            "has no kernel for the watershed flood yet (ROADMAP Queue 1 "
-            "item 13)")
+        # seeds beyond the packed key: the watershed flood, as in JAX
+        _build.LAUNCHES["watershed_route"] += 1
+        return "flood"
     if method not in ("flood", "pallas", "fast"):
         raise ValueError(f"unknown post-processing method {method!r}")
     return method

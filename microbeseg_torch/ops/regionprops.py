@@ -41,20 +41,31 @@ def _segment_sum(values: torch.Tensor, seg: torch.Tensor, n: int,
 
 
 def regionprops(labels: torch.Tensor, max_labels: int = 256) -> RegionProps:
-    """Properties of labels 1..max_labels of an (H, W) integer image."""
-    H, W = labels.shape
+    """Properties of labels 1..max_labels of an (H, W) integer image, or of
+    each image of a (B, H, W) stack in one pass (JAX's ``vmap``); each
+    output then gains the leading B axis.  Each image's sums are those of
+    the image alone."""
+    batched = labels.ndim == 3
+    if not batched:
+        labels = labels[None]
+    B, H, W = labels.shape
     dev = labels.device
-    seg = labels.reshape(-1).to(torch.int64) - 1
-    seg = torch.where(seg < 0, max_labels, seg)   # background -> slot N
-    keep = seg <= max_labels
-    seg = seg[keep]
-    yy = torch.arange(H, device=dev).repeat_interleave(W)[keep]
-    xx = torch.arange(W, device=dev).repeat(H)[keep]
     n_seg = max_labels + 1
+    seg = labels.reshape(B, -1).to(torch.int64) - 1
+    seg = torch.where(seg < 0, max_labels, seg)   # background -> slot N
+    keep = (seg <= max_labels).reshape(-1)
+    # image b's slots are b * n_seg .. b * n_seg + N
+    seg = (seg + torch.arange(B, device=dev)[:, None] * n_seg).reshape(-1)
+    seg = seg[keep]
+    yy = torch.arange(H, device=dev).repeat_interleave(W).repeat(B)[keep]
+    xx = torch.arange(W, device=dev).repeat(B * H)[keep]
+
+    def per_image(v, dtype):
+        return _segment_sum(v, seg, B * n_seg, dtype).view(
+            B, n_seg)[:, :max_labels]
 
     def sum_int(v):
-        return _segment_sum(v, seg, n_seg, torch.int64)[:max_labels].to(
-            torch.float32)
+        return per_image(v, torch.int64).to(torch.float32)
 
     area = sum_int(torch.ones_like(seg))
     sy, sx = sum_int(yy), sum_int(xx)
@@ -66,13 +77,12 @@ def regionprops(labels: torch.Tensor, max_labels: int = 256) -> RegionProps:
     # convention), two-pass: deviations from each region's centroid, not
     # E[y^2] - E[y]^2, which cancels catastrophically at full-frame
     # coordinates
-    zero = torch.zeros(1, dtype=torch.float32, device=dev)
-    dy = yy.to(torch.float32) - torch.cat([cy, zero])[seg]
-    dx = xx.to(torch.float32) - torch.cat([cx, zero])[seg]
+    zero = torch.zeros((B, 1), dtype=torch.float32, device=dev)
+    dy = yy.to(torch.float32) - torch.cat([cy, zero], 1).reshape(-1)[seg]
+    dx = xx.to(torch.float32) - torch.cat([cx, zero], 1).reshape(-1)[seg]
 
     def moment(v):
-        return _segment_sum(v, seg, n_seg, torch.float64)[:max_labels].to(
-            torch.float32) / safe_area
+        return per_image(v, torch.float64).to(torch.float32) / safe_area
 
     mu20, mu02, mu11 = moment(dy * dy), moment(dx * dx), moment(dx * dy)
     common = torch.sqrt(torch.clamp((mu20 - mu02) ** 2 + 4.0 * mu11 ** 2,
@@ -84,10 +94,11 @@ def regionprops(labels: torch.Tensor, max_labels: int = 256) -> RegionProps:
     eq_diam = torch.sqrt(4.0 * area / math.pi)
 
     present = area > 0
-    return RegionProps(
+    props = RegionProps(
         area=torch.where(present, area, 0.0),
-        centroid=torch.where(present[:, None], centroid, 0.0),
+        centroid=torch.where(present[..., None], centroid, 0.0),
         equivalent_diameter=torch.where(present, eq_diam, 0.0),
         major_axis_length=torch.where(present, major, 0.0),
         minor_axis_length=torch.where(present, minor, 0.0),
     )
+    return props if batched else RegionProps(*(p[0] for p in props))

@@ -438,7 +438,10 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "ops.edt", "ops.regionprops", "ops.labelgen",
                 "training.workers", "ops.filters", "training.losses",
                 "training.schedules", "training.optimizers", "training.data",
-                "training.trainer", "cli.train"):
+                "training.trainer", "cli.train", "client.contours",
+                "client.native", "client.store", "client.workers",
+                "cli.serve", "cli.infer_store", "models.torch_import",
+                "utils.profiling"):
         assert (REPO / "microbeseg_torch" / (mod.replace(".", "/") + ".py")
                 ).is_file()
     banned = {"jax", "flax", "msgpack", "triton", "pandas", "microbeseg_tpu"}

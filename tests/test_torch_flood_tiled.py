@@ -167,8 +167,18 @@ def test_routing_by_side_and_label_capacity(monkeypatch):
     assert calls == ["tiled", "packed12", "packed24"]
     out = flood.flood_or_fallback(v, mk, m, n_levels=2, max_label=big)
     assert out.shape == v.shape  # the watershed flood, on the CPU
-    with pytest.raises(NotImplementedError, match="item 13"):
-        flood.flood_or_fallback(v.to("meta"), mk.to("meta"), m.to("meta"),
-                                n_levels=2, max_label=big)
+    # off the CPU too: the same watershed route, counted, no raise
+    import microbeseg_torch.ops.watershed as ws
+    from microbeseg_torch.kernels import _build
+
+    monkeypatch.setattr(ws, "watershed", lambda value, *a, **k: calls.append(
+        f"watershed-{value.device.type}") or torch.zeros(
+            value.shape, dtype=torch.int32, device=value.device))
+    before = _build.LAUNCHES["watershed_route"]
+    out = flood.flood_or_fallback(v.to("meta"), mk.to("meta"), m.to("meta"),
+                                  n_levels=2, max_label=big)
+    assert out.device.type == "meta" and out.shape == v.shape
+    assert calls[-1] == "watershed-meta"
+    assert _build.LAUNCHES["watershed_route"] == before + 1
     with pytest.raises(ValueError, match="n_levels"):
         flood.flood_tiled_plain(v, mk, m, n_levels=129)

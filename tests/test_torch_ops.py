@@ -102,16 +102,27 @@ class TestFloodK1:
         with pytest.raises(ValueError, match=match):
             flood_packed_route(side, n_levels, label_bits)
 
-    def test_unpackable_labels_take_watershed_on_cpu_only(self):
+    def test_unpackable_labels_take_watershed_on_cpu_only(self, monkeypatch):
         """Labels the packed key cannot carry take the 'flood' watershed on
-        the CPU; on any other device they raise (no kernel there yet)."""
+        the CPU, and on any other device the same route (as JAX takes its
+        XLA flood there), counted as ``watershed_route``."""
+        import microbeseg_torch.ops.watershed as ws
+        from microbeseg_torch.kernels import _build
+
         cell, seeds, mask = _batch_fields(6, 1, 32, 32)
         args = [torch.from_numpy(a) for a in (-cell, seeds, mask)]
+        before = _build.LAUNCHES["watershed_route"]
         got = flood_or_fallback(*args, max_label=1 << 24)
         np.testing.assert_array_equal(got.numpy(), watershed(*args).numpy())
+        seen = []
+        monkeypatch.setattr(ws, "watershed", lambda v, mk, m, n_levels: (
+            seen.append((v.device.type, n_levels))
+            or torch.zeros(v.shape, dtype=torch.int32, device=v.device)))
         meta = [a.to("meta") for a in args]
-        with pytest.raises(NotImplementedError, match="item 13"):
-            flood_or_fallback(*meta, max_label=1 << 24)
+        out = flood_or_fallback(*meta, max_label=1 << 24)
+        assert out.device.type == "meta" and out.shape == args[0].shape
+        assert seen == [("meta", 128)]
+        assert _build.LAUNCHES["watershed_route"] == before + 2
 
 
 class TestWatershed:

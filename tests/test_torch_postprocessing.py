@@ -112,16 +112,30 @@ def test_stages_after_the_gaussian_match_jax(method):
         assert ours[i].max() >= 3
 
 
-def test_auto_off_cpu_raises_for_labels_beyond_packed_key():
+def test_auto_off_cpu_raises_for_labels_beyond_packed_key(monkeypatch):
     """With more seeds than the packed key holds, 'auto' takes the
-    watershed flood on the CPU and raises on any other device."""
+    watershed flood on the CPU and, as JAX does, on any other device too:
+    no raise, counted as ``watershed_route`` (off the CPU only).  On
+    ``meta`` tensors the prune and the flood are stubs that record the
+    route."""
+    from microbeseg_torch.kernels import _build
+
     z = torch.zeros((1, 16, 16))
     out = tpp.distance_postprocessing(z, z, 0.45, 0.10, max_seeds=1 << 24)
     assert int(out.sum()) == 0
+    seen = []
+    monkeypatch.setattr(tpp, "_prune_small_seeds", lambda s, *a, **k: (
+        torch.zeros(s.shape, dtype=torch.int32, device=s.device)))
+    monkeypatch.setattr(tpp, "watershed", lambda v, mk, m, n_levels: (
+        seen.append((v.device.type, n_levels))
+        or torch.zeros(v.shape, dtype=torch.int32, device=v.device)))
+    before = _build.LAUNCHES["watershed_route"]
     meta = z.to("meta")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpp.distance_postprocessing(meta, meta, 0.45, 0.10,
-                                    max_seeds=1 << 24)
+    out = tpp.distance_postprocessing(meta, meta, 0.45, 0.10,
+                                      max_seeds=1 << 24)
+    assert out.device.type == "meta" and out.dtype == torch.uint16
+    assert seen == [("meta", 128)]
+    assert _build.LAUNCHES["watershed_route"] == before + 1
 
 
 def test_speckle_beyond_cap_keeps_real_seeds():

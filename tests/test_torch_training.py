@@ -563,10 +563,13 @@ def test_non_oom_errors_propagate_and_pretrained_mismatch_stops(
     assert "The pretrained checkpoint has filters" in msgs[-1]
 
 
-def test_cli_train_runs_end_to_end_on_the_cpu(tmp_path):
+def test_cli_train_runs_end_to_end_on_the_cpu(tmp_path, monkeypatch):
     """``cli.train --device cpu`` on a trainset of 2 + 2 crops of 32^2:
     labels, the full-width run_training for one epoch (and the second
-    run's zero), the checkpoint, sidecar, loss history and trainset zip."""
+    run's zero), the checkpoint, sidecar, loss history and trainset zip.
+    Then ``--omero_id``: the same crops from a store (a ``LocalStore`` in
+    the server's place) are exported to ./training_dataset, labelled there,
+    the store is closed, and run_training gets that folder."""
     root = _trainset(tmp_path, np.random.default_rng(3))
     rc = cli_train.main(["--train_dir", str(root), "--max_epochs", "1",
                          "--model_path", str(tmp_path / "models"),
@@ -581,5 +584,28 @@ def test_cli_train_runs_end_to_end_on_the_cpu(tmp_path):
     assert side["architecture"] == ["DU", "conv", "mish", "gn", [64, 1024]]
     assert side["batch_size"] == 4 and side["optimizer"] == "ranger"
     assert (root / "train" / "cell_dist_train0.tif").is_file()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        cli_train.main(["--omero_id", "3", "--device", "cpu"])
+
+    from microbeseg_torch.client import store as tstore
+    from microbeseg_torch.client.workers import _mask_to_rois
+    from microbeseg_torch.utils.tiff import imread
+
+    store = tstore.LocalStore(tmp_path / "store")
+    did = store.create_dataset("omero_set")
+    for split in ("train", "val"):
+        for img in sorted((root / split).glob("img_*.tif")):
+            iid = store.upload_image(did, img.name, imread(img))
+            store.set_map_annotation(iid, {"set": split})
+            store.add_polygons(iid, _mask_to_rois(
+                imread(img.parent / img.name.replace("img_", "mask_"))))
+    closed, seen = [], []
+    monkeypatch.setattr(store, "close", lambda: closed.append(True))
+    monkeypatch.setattr(tstore, "omero_store_from_args", lambda args: store)
+    monkeypatch.setattr(cli_train, "run_training", lambda path, *a, **k: (
+        seen.append((path, k["device"])) or True))
+    monkeypatch.chdir(tmp_path)
+    assert cli_train.main(["--omero_id", str(did), "--device", "cpu"]) == 0
+    exported = tmp_path / "training_dataset" / "omero_set"
+    assert closed == [True] and seen == [(exported, "cpu")]
+    for split in ("train", "val"):
+        assert len(list((exported / split).glob("img_*.tif"))) == 2
+        assert len(list((exported / split).glob("cell_dist_*.tif"))) == 2
