@@ -161,10 +161,29 @@
    ``watershed_route``, each equal to the CPU's ``watershed`` on the same
    inputs; timed beside the packed route.  The route must be 0 on every
    main path.
+15. Data parallelism on the one card: ``InferenceEngine(mesh=get_mesh(1))``
+   against the engine without a mesh on 16 crops of 256^2 and on one 2048^2
+   frame, tiled (counters from 0): predictions and masks bit for bit, K1,
+   K2 and ``ranked_components`` launched, ``segment`` timed in turns with
+   and without the mesh.  Then the trainer in a process group at full width
+   with 'bn': one float32 step under a world-1 NCCL group (DDP and the
+   cross-replica BatchNorm) against the plain ``Trainer``'s, gradient leaf
+   by leaf at step 11's float32 bar; two ranks on the card over gloo
+   (spawned, NCCL refuses two ranks on one device), one step each, against
+   the plain step at the CPU test's tolerances; the DDP step and the plain
+   step in bf16 timed in turns (device ms, the host's enqueue ms, the
+   kernels' device ms).  Then ``run_training`` with ``num_devices=1`` and
+   ``None`` on glutamicum 0-3 / 35-36 for 2 epochs: equal checkpoints.
+16. The GUI: ``gui.app`` on ``tests/fake_qt.py`` (loaded by file path) on a
+   ``LocalStore`` of glutamicum frames 40-49, the window's device the
+   card: its inference action (counters from 0; K1 and
+   ``ranked_components`` launched) stores the masks ``segment`` gives with
+   the window's settings; its crop review once, pre-labelled, one crop
+   accepted with key 1.
 
 The next-to-last line of stdout is a JSON object with one entry per kernel.
 Its ``launches`` are those of the full-width paths' own runs (steps 4, 5, 7
-without the narrow model, 8, 9, 10, 11, 12 and 13); what the side runs
+without the narrow model, 8, 9, 10, 11, 12, 13, 15 and 16); what the side runs
 launched (K3 and the general K4 as the labelling function in step 4, the
 narrow model in step 7, step 14) stands apart as ``side_run_launches``.  Each wrapper's host enqueue time and
 the device time of every kernel it launches (``torch.profiler``) stand under
@@ -3192,6 +3211,478 @@ def train_quality(trainset: Path, tmp: Path) -> dict:
                 th_seed=best["th_seed"])
 
 
+DP_RANK_TIMEOUT_S = 300.0
+
+
+def dp_batch(rng, n=4, size=SIDE):
+    """A training batch of the path's shape: blob frames as raw images,
+    labels drawn around them, all weights 1, and one augmentation draw."""
+    from microbeseg_torch.ops.augment import draw_params
+
+    images = blob_frames(rng, n, size).astype(np.float32)[..., None]
+    labels = {"border_label": rng.uniform(0, 0.5, images.shape).astype(
+        np.float32),
+        "cell_label": (images > 10000).astype(np.float32)}
+    return (images, labels, np.ones(n, np.float32),
+            draw_params(torch.Generator().manual_seed(7), n, size))
+
+
+def dp_grad_step(trainer, images, labels, weights, params, state,
+                 dtype=torch.float32):
+    """One forward and backward of the global batch from ``state``: this
+    rank's slice of it in a process group, the augmentation of the global
+    draw applied to the slice.  -> (the global weighted mean loss, the
+    gradients by name as float64 on the host, the BatchNorm running
+    statistics)."""
+    from microbeseg_torch.ops.augment import apply_params, take_params
+    from microbeseg_torch.parallel import mesh
+    from microbeseg_torch.training.optimizers import build_optimizer
+
+    dev = trainer.device
+    trainer.model.to(dtype)
+    trainer.model.load_state_dict(state)
+    trainer.optimizer = build_optimizer(trainer.cfg, trainer.model)[0]
+    lo, hi = trainer._rank_slice(len(weights))
+    img, lab = apply_params(
+        torch.from_numpy(images[lo:hi].copy()).to(dev),
+        {k: torch.from_numpy(v[lo:hi].copy()).to(dev)
+         for k, v in labels.items()},
+        take_params(params, lo, hi), trainer.cfg.label_type)
+    loss_sum = trainer.forward_backward(
+        img.to(dtype), {k: v.to(dtype) for k, v in lab.items()},
+        torch.from_numpy(weights[lo:hi].copy()).to(dev, dtype))
+    loss = float(mesh.all_reduce(loss_sum)) / max(float(weights.sum()), 1.0)
+    grads = {n: p.grad.detach().double().cpu()
+             for n, p in trainer.model.named_parameters()}
+    stats = {n: b.detach().double().cpu()
+             for n, b in trainer.model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    return loss, grads, stats
+
+
+def dp_gloo_rank(rank, world, init_method, out, cfg, batch, state):
+    """One of two ranks on the one card, joined over gloo (NCCL refuses two
+    ranks on one device): ``dp_grad_step`` saved to ``{out}/rank{r}.pt``."""
+    from microbeseg_torch.parallel import mesh
+    from microbeseg_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mesh.init_process_group(rank, world, init_method, dev, backend="gloo")
+    try:
+        tr = Trainer(cfg, Path(out) / "models", device=dev)
+        if not tr.distributed:
+            raise AssertionError("the gloo rank's trainer is not in its group")
+        torch.save(dp_grad_step(tr, *batch, state),
+                   Path(out) / f"rank{rank}.pt")
+    finally:
+        mesh.destroy_process_group()
+
+
+def leaf_rel_err(got, ref):
+    """Per leaf: the norm of the difference over the norm of ``ref``."""
+    return {k: (float((got[k] - r).norm() / r.norm()) if float(r.norm()) > 0
+                else float(got[k].norm())) for k, r in ref.items()}
+
+
+def dp_training(dev, tmp):
+    """The trainer under a process group on the card, at the flagship's
+    full width with 'bn' (the cross-replica BatchNorm), batch 4 of 256^2:
+
+    - world 1 over NCCL (DDP) against the plain ``Trainer``, float32, TF32
+      off: each gradient leaf no further from the plain float64 step than
+      twice the plain float32 step's error plus ``TRAIN_STEP_F32_FLOOR``
+      (PR 9's bar), the loss within 1e-5;
+    - two ranks on the card over gloo (spawned processes), one step each,
+      against the plain float32 step at the CPU test's tolerances
+      (gradients and statistics rtol 1e-3, atol 1e-5; loss rtol 1e-5);
+    - the DDP step (world 1, NCCL) and the plain step in bf16, in turns:
+      forward + backward + optimizer, device ms (CUDA events), the host's
+      enqueue ms and the device time of the kernels (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from microbeseg_torch.config import ModelConfig, TrainConfig
+    from microbeseg_torch.models.blocks import CrossReplicaBatchNorm2d
+    from microbeseg_torch.models.unet import build_unet
+    from microbeseg_torch.ops.augment import apply_params
+    from microbeseg_torch.parallel import mesh
+    from microbeseg_torch.training.optimizers import build_optimizer
+    from microbeseg_torch.training.trainer import Trainer, init_like_flax
+
+    cfg = TrainConfig(model=ModelConfig(act_fun="mish", normalization="bn"),
+                      compute_dtype="float32", run_name="dp_check")
+    batch = dp_batch(np.random.default_rng(41))
+    state = init_like_flax(build_unet(cfg.model), 0).state_dict()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        steps = {}
+        for dt in (torch.float64, torch.float32):
+            steps[dt] = dp_grad_step(Trainer(cfg, tmp / "plain", device=dev),
+                                     *batch, state, dtype=dt)
+        (tmp / "nccl").mkdir()
+        mesh.init_process_group(0, 1, mesh.file_init_method(tmp / "nccl"),
+                                dev)
+        try:
+            tr = Trainer(cfg, tmp / "ddp", device=dev)
+            if not (tr.distributed and isinstance(
+                    tr.net, torch.nn.parallel.DistributedDataParallel)):
+                raise AssertionError("the trainer did not wrap DDP")
+            n_sync = sum(isinstance(m, CrossReplicaBatchNorm2d)
+                         for m in tr.model.modules())
+            if not n_sync:
+                raise AssertionError("no cross-replica BatchNorm under DDP")
+            ddp = dp_grad_step(tr, *batch, state)
+            backend = torch.distributed.get_backend()
+            del tr
+        finally:
+            mesh.destroy_process_group()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    ref64, plain32 = steps[torch.float64], steps[torch.float32]
+    e_ddp = leaf_rel_err(ddp[1], ref64[1])
+    e_plain = leaf_rel_err(plain32[1], ref64[1])
+    excess = {k: e_ddp[k] - (2 * e_plain[k] + TRAIN_STEP_F32_FLOOR)
+              for k in e_ddp}
+    loss_rel = abs(ddp[0] - plain32[0]) / abs(plain32[0])
+    worst = max(excess, key=excess.get)
+    out = dict(backend=backend, cross_replica_bn_layers=n_sync,
+               leaves=len(e_ddp), loss_ddp=ddp[0], loss_plain=plain32[0],
+               loss_rel_err=loss_rel,
+               ddp_worst_leaf=(worst, e_ddp[worst], e_plain[worst]),
+               ddp_median_leaf=float(np.median(list(e_ddp.values()))),
+               plain_median_leaf=float(np.median(list(e_plain.values()))),
+               stats_max_abs_diff=max(float((ddp[2][k] - plain32[2][k])
+                                            .abs().max()) for k in ddp[2]))
+    if not (excess[worst] <= 0 and loss_rel <= 1e-5):
+        raise AssertionError(f"the world-1 DDP step vs the plain step: {out}")
+
+    # two ranks over gloo on the card
+    gloo_dir = tmp / "gloo"
+    gloo_dir.mkdir()
+    t0 = time.perf_counter()
+    mesh.spawn(dp_gloo_rank, (2, mesh.file_init_method(gloo_dir),
+                              str(gloo_dir), cfg, batch, state), 2,
+               timeout_s=DP_RANK_TIMEOUT_S)
+    out["gloo_two_ranks_s"] = time.perf_counter() - t0
+    gloo_err = []
+    for r in range(2):
+        loss, grads, stats = torch.load(gloo_dir / f"rank{r}.pt",
+                                        weights_only=False)
+        if not np.isclose(loss, plain32[0], rtol=1e-5):
+            raise AssertionError(f"gloo rank {r}: loss {loss} vs "
+                                 f"{plain32[0]}")
+        for name, ref in [*((k, (grads[k], plain32[1][k])) for k in grads),
+                          *((k, (stats[k], plain32[2][k])) for k in stats)]:
+            got, want = ref
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-3,
+                                       atol=1e-5, err_msg=f"gloo rank {r}: "
+                                       f"{name}")
+            gloo_err.append(float((got - want).abs().max()))
+    out["gloo_max_abs_err"] = max(gloo_err)
+
+    # the DDP step against the plain step, bf16, in turns
+    tcfg = TrainConfig(model=ModelConfig(act_fun="mish", normalization="bn"),
+                       run_name="dp_timing")
+    images, labels, weights, params = batch
+    plain = Trainer(tcfg, tmp / "t_plain", device=dev)
+    aug = apply_params(torch.from_numpy(images).to(dev),
+                       {k: torch.from_numpy(v).to(dev)
+                        for k, v in labels.items()}, params, tcfg.label_type)
+    w = torch.from_numpy(weights).to(dev)
+    (tmp / "nccl_t").mkdir()
+    mesh.init_process_group(0, 1, mesh.file_init_method(tmp / "nccl_t"), dev)
+    try:
+        ddp_tr = Trainer(tcfg, tmp / "t_ddp", device=dev)
+        variants = {}
+        for name, tr in (("plain", plain), ("ddp", ddp_tr)):
+            tr.model.load_state_dict(state)
+            tr.optimizer = build_optimizer(tcfg, tr.model)[0]
+            variants[name] = (lambda tr=tr: (tr.forward_backward(
+                aug[0], aug[1], w), tr.optimizer.step()))
+        times = {k: [] for k in variants}
+        for _ in range(4):
+            for k, fn in variants.items():
+                times[k].append(cuda_ms(fn, 5, warmup=1))
+        host, device = {}, {}
+        for k, fn in variants.items():
+            enq = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fn()
+                enq.append((time.perf_counter() - t1) * 1e3)
+            host[k] = statistics.median(enq)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            device[k] = sum(ev.device_time_total for ev in prof.key_averages()
+                            if ev.device_time_total > 0 and not ev.key
+                            .startswith(("aten::", "Activity Buffer"))
+                            ) / 5 / 1e3
+        del ddp_tr
+    finally:
+        mesh.destroy_process_group()
+    out.update(step_ms={k: statistics.median(v) for k, v in times.items()},
+               step_ms_all=times, host_enqueue_ms=host, device_ms=device)
+    return out
+
+
+def dp_path(dev, report, model):
+    """Phase 15: data parallelism on the one card.  ``InferenceEngine(mesh=
+    get_mesh(1))`` against the engine without a mesh on 16 crops of 256^2
+    and on one 2048^2 frame, tiled (counters from 0 around the mesh engine's
+    calls): the predictions and masks bit for bit; then ``segment`` timed
+    in turns with and without the mesh; then ``dp_training``; then
+    ``run_training`` with ``num_devices=1`` and ``None`` on a small
+    glutamicum split (2 epochs, cuDNN deterministic): the same checkpoint."""
+    import tempfile
+
+    from microbeseg_torch.config import InferConfig
+    from microbeseg_torch.inference.engine import InferenceEngine
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models.io import load_variables
+    from microbeseg_torch.parallel import mesh
+    from microbeseg_torch.training.workers import create_labels, run_training
+
+    t_phase = time.perf_counter()
+    out = {"mesh": [str(d) for d in mesh.get_mesh().devices]}
+    m1 = mesh.get_mesh(1)
+    rng = np.random.default_rng(31)
+    launches = {k: 0 for k in _build.LAUNCHES}
+    seg_ms = {}
+    for name, cfg, frames, must in (
+            ("crops", InferConfig(), blob_frames(rng, B, SIDE),
+             ("flood_packed", "ranked_components")),
+            ("frame", InferConfig(use_tiling=True),
+             big_blob_frames(rng, 1, BIG, BIG_BLOBS),
+             ("flood_tiled", "ranked_components"))):
+        plain = InferenceEngine(model, "distance", cfg=cfg, device=dev)
+        meshed = InferenceEngine(model, "distance", cfg=cfg, mesh=m1)
+        if meshed._n_devices != 1 or meshed.device.type != "cuda":
+            raise AssertionError(f"mesh engine on {meshed.device}")
+        th_cell, th_seed = field_thresholds(plain, frames)
+        want = plain.segment(frames, th_cell, th_seed)
+        maps_plain = [p.cpu() for p in plain._predict_raw_dev(frames)]
+        masks, _, got, _ = driven_segment(meshed, frames, th_cell, th_seed,
+                                          must)
+        for k in launches:
+            launches[k] += got[k]
+        maps_mesh = [p.cpu() for p in meshed._predict_raw_dev(frames)]
+        if not all(torch.equal(a, b) for a, b in zip(maps_mesh, maps_plain)):
+            raise AssertionError(f"dp {name}: mesh-1 predictions differ")
+        if not np.array_equal(masks, want):
+            raise AssertionError(f"dp {name}: mesh-1 masks differ on "
+                                 f"{(masks != want).sum()} px")
+        turns = {"plain": [], "mesh": []}
+        for _ in range(3):
+            for k, e in (("plain", plain), ("mesh", meshed)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e.segment(frames, th_cell, th_seed)
+                turns[k].append((time.perf_counter() - t0) * 1e3)
+        seg_ms[name] = {k: statistics.median(v) for k, v in turns.items()}
+        seg_ms[name + "_all"] = turns
+    out["segment_ms"] = seg_ms
+    out["launches"] = launches
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        out["training"] = dp_training(dev, tmp)
+        # run_training with num_devices 1 and None (every visible card)
+        root = tmp / "small"
+        full = stage_glutamicum(tmp / "full")
+        for split, ids in (("train", range(0, 4)), ("val", range(35, 37))):
+            (root / split).mkdir(parents=True)
+            for i in ids:
+                for kind in ("img", "mask"):
+                    f = full / split / f"{kind}_{i:02d}.tif"
+                    (root / split / f.name).write_bytes(f.read_bytes())
+        if not create_labels(root, "distance"):
+            raise AssertionError("create_labels refused the small split")
+        det = (torch.backends.cudnn.deterministic,
+               torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        ckpts = {}
+        try:
+            for n in (1, None):
+                said = []
+                if not run_training(root, tmp / f"m_{n}", "distance", 1,
+                                    "ranger", 4, text_output=said.append,
+                                    max_epochs=2, num_devices=n):
+                    raise AssertionError(f"run_training(num_devices={n}): "
+                                         f"{said[-3:]}")
+                ckpts[n] = load_variables(tmp / f"m_{n}"
+                                          / "distance_model_01.ckpt")
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = det
+        leaves_1 = tree_leaves(ckpts[1])
+        leaves_n = tree_leaves(ckpts[None])
+        diff = max(float(np.max(np.abs(a - b))) for a, b in
+                   zip(leaves_1, leaves_n))
+        if len(leaves_1) != len(leaves_n) or diff != 0.0:
+            raise AssertionError(f"run_training num_devices=1 vs None: "
+                                 f"checkpoints differ by {diff}")
+        out["run_training_1_vs_none_max_abs_diff"] = diff
+        out["run_training_leaves"] = len(leaves_1)
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["dp_path"] = out
+    tr = out["training"]
+    print(f"dp on {report['card']}: mesh {out['mesh']}; mesh-1 engine bit "
+          f"for bit equal to no mesh on {B} x 256^2 and 1 x 2048^2 tiled; "
+          f"segment ms (median of 3 turns) "
+          f"{ {k: v for k, v in seg_ms.items() if not k.endswith('_all')} }"
+          f"; world-1 {tr['backend']} DDP step vs plain (float32, bn, "
+          f"{tr['cross_replica_bn_layers']} cross-replica BN layers): worst "
+          f"leaf {tr['ddp_worst_leaf']}, loss rel {tr['loss_rel_err']:.3g}; "
+          f"2 gloo ranks on the card vs plain: max abs err "
+          f"{tr['gloo_max_abs_err']:.3g} ({tr['gloo_two_ranks_s']:.1f} s); "
+          f"bf16 step ms in turns {tr['step_ms']}, host enqueue ms "
+          f"{tr['host_enqueue_ms']}, device ms {tr['device_ms']}; "
+          f"run_training num_devices 1 vs None: equal checkpoints "
+          f"({out['run_training_leaves']} leaves); launches flood_packed "
+          f"{launches['flood_packed']}, flood_tiled {launches['flood_tiled']}"
+          f", ranked_components {launches['ranked_components']}; phase "
+          f"{out['phase_s']:.1f} s", flush=True)
+    return launches
+
+
+def tree_leaves(tree):
+    """The numpy leaves of a nested dict of arrays, in key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in
+                tree_leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+def gui_path(dev, report, model):
+    """Phase 16: the port's window (``gui.app`` on ``tests/fake_qt.py``,
+    loaded by file path) on a ``LocalStore`` of glutamicum frames 40-49,
+    on the card: its inference action with a checkpoint of the seeded
+    flagship (counters from 0 around it), the stored masks equal to
+    ``segment``'s with the window's settings; then its crop-review action
+    once, with pre-labels, one crop accepted."""
+    import importlib.util
+    import tempfile
+
+    from microbeseg_torch.client import workers
+    from microbeseg_torch.config import ModelConfig, TrainConfig
+    from microbeseg_torch.inference.engine import InferenceEngine
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models.io import save_model
+    from microbeseg_torch.utils.tiff import imread
+
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "fake_qt", Path(__file__).resolve().parent / "tests" / "fake_qt.py")
+    fake_qt = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fake_qt)
+    fake_qt.install()
+    from microbeseg_torch.client.store import LocalStore
+    from microbeseg_torch.gui import app
+
+    glut = glutamicum_test_frames()
+    th_cell, th_seed = field_thresholds(
+        InferenceEngine(model, "distance", device=dev), glut)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        store = LocalStore(tmp / "store")
+        did = store.create_dataset("glutamicum_40_49")
+        for i, f in zip(GLUT_TEST, glut):
+            store.upload_image(did, f"glut_{i}.tif", f)
+        tid = store.create_dataset("trainset")
+        store.set_dataset_map_annotation(tid, {"crop_size": "128"})
+        save_model(model, TrainConfig(model=ModelConfig(), run_name="gui_01"),
+                   tmp / "models" / "trainset")
+        fake_qt.QApplication([])
+        win = app.MicrobeSegMainWindow(
+            tmp / "store", tmp / "models", tmp / "training_dataset",
+            tmp / "evaluation", tmp / "results", device=dev)
+        win.dataset_box.setValue(did)
+        win.trainset_box.setValue(tid)
+        win.refresh_model_list()
+        win.th_cell_box.setValue(round(th_cell, 3))
+        win.th_seed_box.setValue(round(th_seed, 3))
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        win.buttons["Inference"].click()
+        infer_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        log = win.log.toPlainText()
+        if "Error" in log:
+            raise AssertionError(f"gui inference: {log[-2000:]}")
+        require_launches(launches, ("flood_packed", "ranked_components"),
+                         "the GUI's inference")
+        engine = InferenceEngine.from_checkpoint(
+            tmp / "models" / "trainset" / "gui_01.ckpt",
+            cfg=win._infer_config(), device=dev)
+        n_inst = []
+        for ref in store.list_images(did):
+            if (store.get_map_annotation(ref.image_id)["inference_model"]
+                    != "gui_01" or not store.get_polygons(ref.image_id)):
+                raise AssertionError(f"gui: image {ref.name} not inferred")
+            frame = store.get_plane(ref.image_id, 0, 0, 0)
+            written = imread(tmp / "results" / (
+                f"mask_{Path(ref.name).stem}_channel0.tif"))
+            want = engine.segment(frame)
+            if not np.array_equal(written.reshape(want.shape), want):
+                raise AssertionError(f"gui: {ref.name}: stored masks differ "
+                                     "from segment")
+            n_inst.append(len(np.unique(want)) - 1)
+        if min(n_inst) < 1:
+            raise AssertionError(f"gui: frames without instances {n_inst}")
+
+        # crop review: pre-labelled proposals, one accepted with key 1
+        win.prelabel_checkbox.setChecked(True)
+        before = len(store.list_images(tid))
+        t0 = time.perf_counter()
+        win.buttons["Create crops"].click()
+        crops = list(win._crops)
+        fake_qt.QShortcut.trigger("1")
+        crop_s = time.perf_counter() - t0
+        if not crops or len(store.list_images(tid)) != before + 1:
+            raise AssertionError(f"gui crop review: {len(crops)} crops, "
+                                 f"{len(store.list_images(tid)) - before} "
+                                 "accepted")
+        if "Crop accepted -> train" not in win.log.toPlainText():
+            raise AssertionError(f"gui crop review: {win.log.toPlainText()}")
+        if win._crop_gen.engine is None:
+            raise AssertionError("gui crop review: no pre-label engine")
+        pre = InferenceEngine.from_checkpoint(
+            tmp / "models" / "trainset" / "gui_01.ckpt", device=dev)
+        for c in crops:   # the GUI's pre-labels: the default thresholds
+            want = [r.points for r in workers._mask_to_rois(
+                pre.segment(c.img))]
+            if [r.points for r in c.rois] != want:
+                raise AssertionError("gui crop review: pre-labels differ "
+                                     "from segment of the crop")
+        win.closeEvent(None)
+    out = dict(launches=launches, inference_s=infer_s, crop_review_s=crop_s,
+               images=len(n_inst), instances=[min(n_inst), max(n_inst)],
+               crops=len(crops), device_label=win.device_label.text(),
+               thresholds=[win.th_cell_box.value(), win.th_seed_box.value()],
+               phase_s=time.perf_counter() - t_phase)
+    report["gui_path"] = out
+    print(f"gui on {report['card']}: {out['device_label']}; inference action "
+          f"on {len(n_inst)} glutamicum frames in {infer_s:.2f} s (the engine "
+          f"built in the job), stored masks equal segment, instances "
+          f"{out['instances']}; crop review: {len(crops)} pre-labelled "
+          f"crops, one accepted, {crop_s:.2f} s; launches flood_packed "
+          f"{launches['flood_packed']}, ranked_components "
+          f"{launches['ranked_components']}; phase {out['phase_s']:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -3237,6 +3728,8 @@ def main() -> int:
     eval_launches = eval_path(dev, report, model, args.profile_eval)
     label_launches = labels_path(dev, report)
     train_launches = train_path(dev, report, args.train_quality)
+    dp_launches = dp_path(dev, report, model)
+    gui_launches = gui_path(dev, report, model)
     report["total_s"] = time.perf_counter() - t0
     # launches: those of the full-width paths' own runs (crop, tiled frame,
     # int8 crop, int8 tiled frame, inference CLI, evaluation, labels), each
@@ -3244,7 +3737,8 @@ def main() -> int:
     # the narrow int8 model) are kept apart under side_run_launches.
     driven = [crop_launches, big_launches, *int8_launches, cli_launches,
               serve_launches, store_launches, crop_gen_launches,
-              eval_launches, label_launches, train_launches]
+              eval_launches, label_launches, train_launches, dp_launches,
+              gui_launches]
     launches = {k: sum(d[k] for d in driven) for k in _build.LAUNCHES}
     if launches["watershed_route"]:
         raise AssertionError("the watershed route ran on a main path")
@@ -3252,7 +3746,8 @@ def main() -> int:
             + sum(d[k] for d in ws_launches) for k in _build.LAUNCHES}
     report["launches_by_path"] = dict(zip(
         ("crops", "frames", "int8_crops", "int8_frame", "cli", "serve",
-         "store", "crop_generator", "eval", "labels", "train"), driven))
+         "store", "crop_generator", "eval", "labels", "train", "dp",
+         "gui"), driven))
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[name],
                     side_run_launches=side[name],

@@ -1,7 +1,9 @@
 """Headless training CLI on the port (reference: train_script.py:14-129).
 
 Same arguments as ``microbeseg_tpu/cli/train.py``, plus ``--device``
-(default: the CUDA card; ``--device cpu`` runs on the CPU).  Label creation
+(default: the CUDA card; ``--device cpu`` runs on the CPU).
+``--num_devices N`` trains data-parallel on N cards, one process each
+(``run_training(num_devices=)``); with ``--device cpu``, on N CPU ranks.  Label creation
 then training on a local trainset folder with ``train/`` and ``val/`` (and
 ``test/``) subdirectories of img_ / mask_ TIFFs:
 
@@ -38,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--model_path", "-r", default=None, type=str,
                         help="Model path for saving")
     parser.add_argument("--num_devices", "-d", default=None, type=int,
-                        help="Data-parallel devices; the port trains on one")
+                        help="Data-parallel devices (default: every visible "
+                        "card; with --device cpu, that many CPU ranks)")
     parser.add_argument("--normalization", "-n", default="gn", type=str,
                         help='"gn" (default, robust) | "bn" (reference '
                         'configuration) | "in"')
@@ -71,10 +74,6 @@ def main(argv=None) -> int:
         raise ValueError(f"Unknown method {args.method}")
     if args.optimizer.lower() not in ("ranger", "adam"):
         raise ValueError(f"Unknown optimizer {args.optimizer}")
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(
-            "data-parallel training is not in the port yet (ROADMAP Queue 1, "
-            "the item after training); train on one device")
 
     if args.train_dir is not None:
         trainset_path = Path(args.train_dir)
@@ -117,7 +116,7 @@ def main(argv=None) -> int:
                       resume=args.resume,
                       pretrained=(Path(args.pretrained)
                                   if args.pretrained else None),
-                      device=args.device)
+                      device=args.device, num_devices=args.num_devices)
     print("--- Finished ---")
     return 0 if ok else 1
 

@@ -5,7 +5,8 @@ shared source as it is, with ``g++ -O2 -shared -fPIC``, on first use into
 ``build/native/libmbs_contours-<hash>.so`` at the repository root (git-ignored
 through ``build/``; the hash of the source names the file, so an edited
 source is rebuilt and the two packages never write one ``.so``).  Without a
-compiler every function here returns None and ``client/contours.py`` runs
+compiler, or with ``MICROBESEG_NO_NATIVE=1`` in the environment, every
+function here returns None and ``client/contours.py`` runs
 its Python loops, which give the same output (the tests compare them).
 """
 
@@ -56,13 +57,14 @@ def _build(target: Path) -> bool:
 
 def get_lib() -> Optional[ctypes.CDLL]:
     """The loaded library, building it once if needed; None when it cannot
-    be built or loaded."""
+    be built or loaded, or when ``MICROBESEG_NO_NATIVE=1`` asks for the
+    Python loops."""
     global _lib, _tried
     with _guard:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not _SRC.is_file():
+        if os.environ.get("MICROBESEG_NO_NATIVE") == "1" or not _SRC.is_file():
             return None
         target = _lib_path()
         if not target.is_file() and not _build(target):

@@ -237,12 +237,16 @@ class Evaluator:
                  text_output: Callable[[str], None] = _noop,
                  progress: Callable[[int], None] = _noop,
                  should_stop: Callable[[], bool] = lambda: False,
-                 device=None):
+                 device=None, mesh=None):
+        """``mesh``: the engines it builds run data-parallel over its
+        devices (it then names the device)."""
         self.cfg = cfg or EvalConfig()
         self.text_output = text_output
         self.progress = progress
         self.should_stop = should_stop
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.devices[0] if mesh is not None
+                       else resolve_device(device))
 
     # ------------------------------------------------------------------
 
@@ -290,10 +294,12 @@ class Evaluator:
             icfg = InferConfig(batch_size=self.cfg.batch_size,
                                tta=self.cfg.tta)
             engine = (InferenceEngine.from_checkpoint(
-                          model_path, cfg=icfg, device=self.device)
+                          model_path, cfg=icfg, device=self.device,
+                          mesh=self.mesh)
                       if len(group) == 1 else
                       InferenceEngine.from_checkpoints(
-                          group, cfg=icfg, device=self.device))
+                          group, cfg=icfg, device=self.device,
+                          mesh=self.mesh))
             label_type = engine.label_type
 
             if label_type == "distance":

@@ -20,12 +20,22 @@ int8 path (``models.blocks.QuantConv``, kernel K5).  Their activation scales
 are calibrated once per padded shape, on the first frames or tiles of that
 shape; until then, and after a calibration pass that ran out of memory,
 a layer quantises with each sample's own maximum.
+
+With ``mesh=`` (``parallel.mesh.get_mesh``) the engine holds one replica of
+each model on every device of the mesh.  The device batch and the
+pre-processing chunk grow by the number of devices, as the JAX engine's
+do, and each device takes its contiguous share of every forward batch and
+of every post-processing batch, on a host thread of its own; the shares'
+predictions and masks come back in frame order.  An int8 engine
+calibrates once, on the first device, and every replica carries the same
+activation scales.
 """
 
 from __future__ import annotations
 
 import copy
 import math
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional, Sequence, Tuple, Union
 
@@ -48,6 +58,8 @@ from microbeseg_torch.ops.postprocessing import (
     distance_postprocessing_grid,
 )
 from microbeseg_torch.ops.resize import resize
+from microbeseg_torch.parallel.mesh import (Mesh, batch_sharding,
+                                            replicated_sharding)
 from microbeseg_torch.utils.device import resolve_device
 from microbeseg_torch.utils.image import pad_bucket_shape
 
@@ -62,11 +74,15 @@ class InferenceEngine:
                  cfg: Optional[InferConfig] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  max_seeds: Optional[int] = None,
-                 extra: Sequence[torch.nn.Module] = ()):
+                 extra: Sequence[torch.nn.Module] = (),
+                 mesh: Optional[Mesh] = None):
         """``extra``: further ensemble members whose predictions are
         averaged with ``model``'s; all share ``label_type``.  ``device``:
-        the CUDA card unless the caller passes ``"cpu"``."""
-        self.device = resolve_device(device)
+        the CUDA card unless the caller passes ``"cpu"``.  ``mesh``: run
+        data-parallel over its devices (it then names the device)."""
+        self.mesh = mesh
+        self.device = (mesh.devices[0] if mesh is not None
+                       else resolve_device(device))
         self.cfg = cfg or InferConfig()
         if self.cfg.quantize and extra:
             raise ValueError("quantize is not supported for ensembles "
@@ -87,6 +103,12 @@ class InferenceEngine:
         if self.device.type == "cuda":
             self.models = [m.to(memory_format=torch.channels_last)
                            for m in self.models]
+        # the models of each device of the mesh; the first are self.models
+        self._replicas = [self.models]
+        if mesh is not None:
+            self._replicas = [list(r) for r in zip(
+                *(replicated_sharding(mesh, m) for m in self.models))]
+        self._pools: Optional[list] = None
         # None -> instance capacity scales with frame area (_seeds_cap)
         self.max_seeds = max_seeds
         # out-of-memory fallbacks taken (zero predictions / masks)
@@ -95,24 +117,71 @@ class InferenceEngine:
     @classmethod
     def from_checkpoint(cls, model_path: Union[str, Path],
                         cfg: Optional[InferConfig] = None,
-                        device: Optional[Union[str, torch.device]] = None
-                        ) -> "InferenceEngine":
+                        device: Optional[Union[str, torch.device]] = None,
+                        mesh: Optional[Mesh] = None) -> "InferenceEngine":
+        device = mesh.devices[0] if mesh is not None else device
         model, train_cfg = load_model(model_path, device=device)
-        return cls(model, train_cfg.label_type, cfg=cfg, device=device)
+        return cls(model, train_cfg.label_type, cfg=cfg, device=device,
+                   mesh=mesh)
 
     @classmethod
     def from_checkpoints(cls, model_paths: Sequence[Union[str, Path]],
                          cfg: Optional[InferConfig] = None,
-                         device: Optional[Union[str, torch.device]] = None
-                         ) -> "InferenceEngine":
+                         device: Optional[Union[str, torch.device]] = None,
+                         mesh: Optional[Mesh] = None) -> "InferenceEngine":
         """Ensemble engine: predictions averaged over several checkpoints."""
+        device = mesh.devices[0] if mesh is not None else device
         loaded = [load_model(p, device=device) for p in model_paths]
         label_types = {t.label_type for _, t in loaded}
         if len(label_types) > 1:
             raise ValueError(
                 f"ensemble members disagree on label_type: {label_types}")
         return cls(loaded[0][0], loaded[0][1].label_type, cfg=cfg,
-                   device=device, extra=[m for m, _ in loaded[1:]])
+                   device=device, extra=[m for m, _ in loaded[1:]],
+                   mesh=mesh)
+
+    # ------------------------------------------------------------------
+    # the mesh
+    # ------------------------------------------------------------------
+
+    @property
+    def _n_devices(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
+    def _on_devices(self, fn, shares: Sequence[tuple]) -> list:
+        """``fn(i, *share)`` for each non-empty share, with device i of the
+        mesh current, each device on a host thread of its own when there
+        are several; the results in share order."""
+        jobs = [(i, sh) for i, sh in enumerate(shares) if sh[0].shape[0]]
+
+        def run(i, sh):
+            dev = self.mesh.devices[i]
+            if dev.type == "cuda":
+                with torch.cuda.device(dev):
+                    return fn(i, *sh)
+            return fn(i, *sh)
+
+        if len(jobs) == 1:
+            return [run(*jobs[0])]
+        if self._pools is None:
+            self._pools = [ThreadPoolExecutor(1) for _ in self.mesh.devices]
+        futures = [self._pools[i].submit(run, i, sh) for i, sh in jobs]
+        return [f.result() for f in futures]
+
+    def _shares(self, tensors: Sequence[torch.Tensor]) -> list:
+        """Per device of the mesh, its contiguous share of each tensor."""
+        return list(zip(*(batch_sharding(self.mesh, t) for t in tensors)))
+
+    def _sync_quant_replicas(self) -> None:
+        """Every replica takes the first one's calibrated activation
+        scales, so a mesh quantises as one device does."""
+        src = [m for m in self.models[0].modules() if isinstance(m, QuantConv)]
+        for models in self._replicas[1:]:
+            dst = [m for m in models[0].modules()
+                   if isinstance(m, QuantConv)]
+            for a, b in zip(src, dst):
+                b.act_amax = a.act_amax.to(b.act_amax.device)
+                b.calibrated = a.calibrated
 
     # ------------------------------------------------------------------
 
@@ -155,6 +224,7 @@ class InferenceEngine:
                 m.calibrating = False
                 m._seen_amax = None
         self._quant_shapes.add((h, w))
+        self._sync_quant_replicas()
 
     def _maybe_calibrate_bucket(self, raw: torch.Tensor, sh: int, sw: int,
                                 th: int, tw: int) -> None:
@@ -192,10 +262,12 @@ class InferenceEngine:
 
     def _device_batch(self, h: int, w: int) -> int:
         """Frames per forward call: cfg.batch_size at 256^2, fewer on larger
-        buckets (2x headroom over the area-proportional count)."""
+        buckets (2x headroom over the area-proportional count); times the
+        devices of the mesh, so a batch divides over them."""
         area = max(h * w, 1)
         return max(1, min(self.cfg.batch_size,
-                          (self.cfg.batch_size * 2 * 256 * 256) // area))
+                          (self.cfg.batch_size * 2 * 256 * 256) // area)
+                   ) * self._n_devices
 
     def _resident_frames_cap(self, h: int, w: int, dtype) -> int:
         """Frames of a stack held on the device at once (raw upload plus
@@ -209,10 +281,11 @@ class InferenceEngine:
         holds a few index and lookup planes per frame at the unscaled size
         (an int64 bin plane, an int64 gather index and four float32
         lookups, about 64 bytes a pixel), which ``_device_batch`` knows
-        nothing about; the cap keeps them under 2 GiB per chunk."""
+        nothing about; the cap keeps them under 2 GiB per chunk (per
+        device of the mesh)."""
         if not self.cfg.apply_clahe:
             return 1 << 30
-        return max(1, (2 << 30) // (h * w * 64))
+        return max(1, (2 << 30) // (h * w * 64)) * self._n_devices
 
     def _scaled_hw(self, h: int, w: int) -> Tuple[int, int]:
         """The size the network sees for an (h, w) frame."""
@@ -260,23 +333,25 @@ class InferenceEngine:
             norm = torch.nn.functional.pad(norm, (0, pw, 0, ph), value=-1.0)
         return extract_tiles_device(norm, tile, pos)
 
-    def _net_apply(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def _net_apply(self, x: torch.Tensor, models: Sequence[torch.nn.Module]
+                   ) -> Tuple[torch.Tensor, ...]:
         """Model application on normalised, padded (B, H, W, 1) input:
         distance -> (border, cell) each (B, H, W); boundary -> (softmax
         probs (B, H, W, 3),).  Ensemble members average head-wise; with
         ``cfg.tta`` predictions also average over the 4 flips, or all 8
         dihedral transforms when H == W (both heads are scalar fields, so
-        inverse-mapping and averaging is exact)."""
+        inverse-mapping and averaging is exact).  ``models``: the members
+        on ``x``'s device."""
         def base(xv):
             acc = None
-            for model in self.models:
+            for model in models:
                 preds = model(xv)
                 if self.label_type == "distance":
                     out = [preds[0][..., 0], preds[1][..., 0]]
                 else:
                     out = [torch.softmax(preds, dim=-1)]
                 acc = out if acc is None else [a + b for a, b in zip(acc, out)]
-            return [a / len(self.models) for a in acc]
+            return [a / len(models) for a in acc]
 
         if not self.cfg.tta:
             return tuple(base(x))
@@ -301,12 +376,20 @@ class InferenceEngine:
     def _forward(self, x: torch.Tensor, pad_y: int = 0,
                  pad_x: int = 0) -> Tuple[torch.Tensor, ...]:
         """Normalised (b, h, w) frames or tiles, already padded up-left by
-        (pad_y, pad_x) -> float32 predictions with the pad cropped off."""
-        with torch.inference_mode(), torch.autocast(
-                "cuda", dtype=torch.bfloat16,
-                enabled=self.device.type == "cuda"):
-            preds = self._net_apply(x[..., None])
-        return tuple(p[:, pad_y:, pad_x:].float() for p in preds)
+        (pad_y, pad_x) -> float32 predictions with the pad cropped off.
+        Under a mesh each device runs its share of the batch."""
+        def run(i, xs):
+            with torch.inference_mode(), torch.autocast(
+                    "cuda", dtype=torch.bfloat16,
+                    enabled=self.device.type == "cuda"):
+                preds = self._net_apply(xs[..., None], self._replicas[i])
+            return tuple(p[:, pad_y:, pad_x:].float() for p in preds)
+
+        if self.mesh is None:
+            return run(0, x)
+        outs = self._on_devices(run, self._shares([x]))
+        return tuple(torch.cat([o[k].to(self.device) for o in outs])
+                     for k in range(len(outs[0])))
 
     def _forward_chunk(self, raw: torch.Tensor, sh: int, sw: int, pad_y: int,
                        pad_x: int) -> Tuple[torch.Tensor, ...]:
@@ -455,22 +538,30 @@ class InferenceEngine:
                     th_seed: float) -> np.ndarray:
         """Device predictions of T frames (distance: (border, cell);
         boundary: (probs,)) -> (T, H, W) uint16 masks, in device batches
-        (one frame at a time at 2048^2).  Out-of-memory gives zero masks
-        for the batch, counted."""
+        (one frame at a time at 2048^2; under a mesh, each device its
+        share of a batch).  Out-of-memory gives zero masks for the batch,
+        counted."""
         T, H, W = preds[0].shape[:3]
         bs = self._device_batch(H, W)
         cap = self._seeds_cap(H, W)
         masks = np.empty((T, H, W), np.uint16)
+
+        def run(i, *chunk):
+            if self.label_type == "distance":
+                m = distance_postprocessing(chunk[0], chunk[1], th_seed,
+                                            th_cell, max_seeds=cap)
+            else:
+                m = boundary_postprocessing(chunk[0], max_seeds=cap)
+            return m.cpu().numpy()
+
         for s in range(0, T, bs):
+            chunk = [p[s:s + bs] for p in preds]
             try:
-                if self.label_type == "distance":
-                    m = distance_postprocessing(
-                        preds[0][s:s + bs], preds[1][s:s + bs], th_seed,
-                        th_cell, max_seeds=cap)
-                else:
-                    m = boundary_postprocessing(preds[0][s:s + bs],
-                                                max_seeds=cap)
-                masks[s:s + bs] = m.cpu().numpy()
+                if self.mesh is None:
+                    masks[s:s + bs] = run(0, *chunk)
+                else:   # each device post-processes its share
+                    masks[s:s + bs] = np.concatenate(
+                        self._on_devices(run, self._shares(chunk)))
             except torch.cuda.OutOfMemoryError:
                 self.oom_count += 1
                 masks[s:s + bs] = 0
@@ -505,10 +596,20 @@ class InferenceEngine:
                 "segment() for the boundary method (no threshold grid)")
         frame = np.asarray(frame)
         border, cell = self._predict_raw_dev(frame[None])
-        try:
+        cap = self._seeds_cap(*frame.shape[-2:])
+
+        def run(i, pairs, b, c):
             return distance_postprocessing_grid(
-                border[0], cell[0], th_pairs,
-                max_seeds=self._seeds_cap(*frame.shape[-2:])).cpu().numpy()
+                b[0], c[0], pairs, max_seeds=cap).cpu().numpy()
+
+        try:
+            if self.mesh is None:
+                return run(0, th_pairs, border, cell)
+            # each device post-processes its share of the grid
+            shares = [(p, border.to(d), cell.to(d)) for p, d in zip(
+                np.array_split(np.asarray(th_pairs), self._n_devices),
+                self.mesh.devices)]
+            return np.concatenate(self._on_devices(run, shares))
         except torch.cuda.OutOfMemoryError:
             self.oom_count += 1
             return np.zeros((len(th_pairs),) + frame.shape[-2:], np.uint16)

@@ -13,8 +13,9 @@ reproduce float32 division exactly.  The file name carries a hash of the
 source, so an edited source is rebuilt.  ``build_all()`` starts one ``nvcc``
 per source, all at once.
 
-The wrappers count their launches in ``LAUNCHES`` (one per wrapper call that
-launches its kernels), so a run can show that it went through the kernels.
+The wrappers count their launches in ``LAUNCHES`` through ``count_launch``
+(one per wrapper call that launches its kernels), so a run can show that it
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -44,6 +46,13 @@ LAUNCHES: Dict[str, int] = {"flood_packed": 0, "flood_packed_cluster": 0,
                             "watershed_route": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# an engine on a mesh launches from one host thread per device
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:

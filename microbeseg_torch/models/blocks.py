@@ -21,6 +21,7 @@ from torch import nn
 
 from microbeseg_torch.ops.kernels.matmul import (conv3x3_int8, dequantize,
                                                  matmul_int8, tap_operand)
+from microbeseg_torch.parallel.mesh import all_reduce, is_distributed
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -52,11 +53,53 @@ def make_act(name: str) -> nn.Module:
     raise ValueError(f"Unsupported activation function: {name}")
 
 
+class CrossReplicaBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm over the global batch of a process group, the counterpart
+    of the JAX package's BatchNorm on a batch sharded over the mesh (XLA
+    reduces its statistics across the replicas).  In training, each rank
+    sums its per-channel sum, sum of squares and count, one all-reduce
+    (``parallel.mesh.all_reduce``, which autograd sees) gives the global
+    ones, and mean and variance follow as flax takes them (``E[x^2] -
+    E[x]^2``).  The running statistics are updated as ``nn.BatchNorm2d``
+    updates them (momentum, the unbiased variance of the global batch).
+    The same code runs on CUDA and CPU tensors (``nn.SyncBatchNorm`` takes
+    only CUDA tensors).  In eval mode, and outside a process group, it is
+    ``nn.BatchNorm2d``; the parameters and buffers keep their names."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or not is_distributed():
+            return super().forward(x)
+        c = x.shape[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = (0, 2, 3)
+        count = torch.full((1,), x.numel() // c, dtype=xf.dtype,
+                           device=x.device)
+        sums = all_reduce(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                                     count]))
+        n = sums[-1]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean.detach())
+            self.running_var.mul_(1 - m).add_(
+                m * var.detach() * n.detach() / torch.clamp(n.detach() - 1,
+                                                            min=1))
+            self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        shift = self.bias - mean * scale
+        y = xf * scale.view(1, c, 1, 1) + shift.view(1, c, 1, 1)
+        return y.to(x.dtype)
+
+
 def make_norm(kind: str, ch: int) -> nn.Module:
     """'bn' (eps 1e-5, momentum 0.1 = flax's 0.9) | 'gn' (8 groups, eps
-    1e-5) | 'in' (instance statistics, no affine parameters)."""
+    1e-5) | 'in' (instance statistics, no affine parameters).  'bn' built
+    inside a process group reduces its statistics over the group
+    (``CrossReplicaBatchNorm2d``); outside one it is ``nn.BatchNorm2d``."""
     if kind == "bn":
-        return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+        cls = CrossReplicaBatchNorm2d if is_distributed() else nn.BatchNorm2d
+        return cls(ch, eps=1e-5, momentum=0.1)
     if kind == "gn":
         return nn.GroupNorm(8, ch, eps=1e-5)
     if kind == "in":

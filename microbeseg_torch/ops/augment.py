@@ -306,6 +306,18 @@ def draw_params(gen: torch.Generator, n: int, size: int
     return p
 
 
+def take_params(p: Dict[str, torch.Tensor], lo: int, hi: int
+                ) -> Dict[str, torch.Tensor]:
+    """The parameters of samples ``lo:hi`` of a drawn batch: every
+    per-sample entry sliced, and of ``noise`` the images of those samples
+    that drew noise (one data-parallel rank's share of a global draw)."""
+    out = {k: v[lo:hi] for k, v in p.items() if k != "noise"}
+    drew = torch.cumsum(p["do_noise"].to(torch.int64), 0)
+    first = int(drew[lo - 1]) if lo > 0 else 0
+    out["noise"] = p["noise"][first:int(drew[hi - 1])]
+    return out
+
+
 def _subset(gate: torch.Tensor, dev: torch.device):
     """(host, device) indices of the samples whose host-side ``gate`` is
     set."""

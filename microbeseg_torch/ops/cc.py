@@ -119,7 +119,7 @@ def _root_ranks(labels: torch.Tensor) -> torch.Tensor:
 
 def _launch(name: str, entry: str, n_ptrs: int, n_ints: int, args) -> None:
     _build.check(_build.entry("cc", entry, n_ptrs, n_ints)(*args), name)
-    _build.LAUNCHES[name] += 1
+    _build.count_launch(name)
 
 
 def connected_components(mask: torch.Tensor,

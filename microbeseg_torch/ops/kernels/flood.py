@@ -207,7 +207,7 @@ def _launch_packed(value, markers, mask, n_levels, inner_steps, label_bits,
                  W, n_levels, inner_steps, label_bits, H * W,
                  _build.stream_ptr(value))
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.count_launch(name)
     return out[0] if squeeze else out
 
 
@@ -336,7 +336,7 @@ def _launch_tiled(value, markers, mask, n_levels, steps_out=None,
                  B, H, W, n_levels, _INNER_STEPS, H * W,
                  _build.stream_ptr(value))
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.count_launch(name)
     return out[0] if squeeze else out
 
 
@@ -368,5 +368,5 @@ def flood_or_fallback(value, markers, mask, n_levels: int = 128,
         return flood_packed(value, markers, mask, n_levels=n_levels,
                             label_bits=bits)
     from microbeseg_torch.ops.watershed import watershed
-    _build.LAUNCHES["watershed_route"] += 1
+    _build.count_launch("watershed_route")
     return watershed(value, markers, mask, n_levels=n_levels)

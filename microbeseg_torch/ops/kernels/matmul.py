@@ -135,7 +135,7 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, out_dtype,
                  None if bt is None else _build.ptr(bt), _build.ptr(out), M,
                  K, N, Kp, Np, bn, _build.stream_ptr(a))
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.count_launch(name)
     return out
 
 
@@ -259,5 +259,5 @@ def conv3x3_int8(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
                  W, C, O, Np, bn, int(out_dtype == torch.bfloat16),
                  _build.stream_ptr(x_q))
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.count_launch(name)
     return out

@@ -119,7 +119,7 @@ def _resolve_method(method: str, dev: torch.device, max_seeds: int) -> str:
         if max_seeds < _MAX_PACKED:
             return "pallas"
         # seeds beyond the packed key: the watershed flood, as in JAX
-        _build.LAUNCHES["watershed_route"] += 1
+        _build.count_launch("watershed_route")
         return "flood"
     if method not in ("flood", "pallas", "fast"):
         raise ValueError(f"unknown post-processing method {method!r}")

@@ -21,7 +21,15 @@ src/training/train.py:115-576):
   statistics are replaced by the moments pooled over the non-augmented
   train images;
 - resumable snapshots (``TrainConfig.train_state_every``) with the JAX
-  package's fingerprint check.
+  package's fingerprint check;
+- data parallelism when the trainer is built inside a process group
+  (``parallel.mesh.init_process_group``, one process per device): the
+  model is wrapped in ``DistributedDataParallel``, 'bn' reduces its
+  statistics over the group, and the step batch is
+  ``pad_batch_to_devices(batch_size, world)`` of which each rank takes its
+  contiguous slice.  Every rank draws the global batch's order and
+  augmentation from the same seeds, so the step is the one-device step.
+  Only rank 0 writes checkpoints, snapshots and the loss history.
 
 The training set lives on the device when it fits (4 GiB).  Weights are
 initialised as flax initialises them (truncated-normal LeCun kernels, zero
@@ -52,7 +60,11 @@ from microbeseg_torch.models.io import (
     write_sidecar,
 )
 from microbeseg_torch.models.unet import build_unet
-from microbeseg_torch.ops.augment import apply_params, draw_params, normalize_val
+from microbeseg_torch.ops.augment import (apply_params, draw_params,
+                                          normalize_val, take_params)
+from microbeseg_torch.parallel.mesh import (agree, all_reduce, is_distributed,
+                                            pad_batch_to_devices, rank,
+                                            world_size)
 from microbeseg_torch.training.data import SplitArrays, TrainingData, epoch_batches
 from microbeseg_torch.training.losses import get_batch_loss
 from microbeseg_torch.training.optimizers import build_optimizer, set_learning_rate
@@ -99,7 +111,8 @@ def init_like_flax(model: nn.Module, seed: int) -> nn.Module:
 
 class Trainer:
     """Headless trainer; callbacks replace the reference's Qt signals.
-    Runs on the CUDA card unless ``device`` says otherwise."""
+    Runs on the CUDA card unless ``device`` says otherwise.  Built inside a
+    process group, it is one rank of a data-parallel run on ``device``."""
 
     _DEVICE_CACHE_MAX_BYTES = 4 << 30   # larger training sets stay on the host
     _FLUSH_SECS = 120.0                 # max staleness of the best checkpoint
@@ -118,11 +131,30 @@ class Trainer:
         self.device = resolve_device(device)
         self.model = build_unet(cfg.model).to(
             self.device, memory_format=torch.channels_last)
+        self.rank, self.world = rank(), world_size()
+        self.distributed = is_distributed()
+        # in a process group DDP runs the training forward and averages
+        # the gradients over the ranks in backward
+        self._ddp = None
+        if self.distributed:
+            self._ddp = nn.parallel.DistributedDataParallel(
+                self.model,
+                device_ids=([torch.cuda.current_device()
+                             if self.device.index is None
+                             else self.device.index]
+                            if self.device.type == "cuda" else None),
+                broadcast_buffers=False)
         self.loss_fn = get_batch_loss(cfg.loss, cfg.label_type)
         self.stopped = False
         self._dev_memo: Dict[int, tuple] = {}
         self._last_best = None
         self._timing: Dict = {}
+
+    @property
+    def net(self) -> nn.Module:
+        """The module that runs the training forward: ``self.model``, or
+        its DDP wrapper in a process group."""
+        return self.model if self._ddp is None else self._ddp
 
     # ------------------------------------------------------------------
     # one step
@@ -134,12 +166,16 @@ class Trainer:
 
     def forward_backward(self, images, labels, weights) -> torch.Tensor:
         """Loss and gradients of one augmented batch; returns the weighted
-        loss sum (on the device)."""
+        loss sum (on the device).  In a process group the batch is this
+        rank's slice: its loss sum over the global weight sum, times the
+        world size, so that DDP's mean over the ranks is the gradient of
+        the global weighted mean (padded slots weigh 0)."""
         self.model.train()
         with self._autocast():
-            preds = self.model(images)
+            preds = self.net(images)
         loss_sum = self.loss_fn(preds, labels, weights)
-        loss = loss_sum / torch.clamp(torch.sum(weights), min=1.0)
+        w_sum = all_reduce(torch.sum(weights).detach())
+        loss = loss_sum / torch.clamp(w_sum, min=1.0) * self.world
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         return loss_sum.detach()
@@ -296,45 +332,60 @@ class Trainer:
         def flush_best():
             nonlocal best_dirty, last_flush
             if best_dirty:
-                save_checkpoint(best_state, self.path_models / cfg.run_name)
+                if self.rank == 0:
+                    save_checkpoint(best_state,
+                                    self.path_models / cfg.run_name)
                 best_dirty = False
                 last_flush = time.time()
 
         train_cache = self._device_cache(data.train)
         val_cache = self._device_cache(data.val)
         size = data.crop_size
+        # the step batch divides over the ranks; ragged and rounded-up
+        # slots weigh 0, so the weighted loss stays exact
+        step_bs = pad_batch_to_devices(cfg.batch_size, self.world)
+        lo, hi = self._rank_slice(step_bs)
 
         for epoch in range(start_epoch, run_epochs):
-            if self.should_stop():
+            if agree(self.should_stop(), self.device):
                 self.text_output("Stop training due to user interaction.")
-                try:
-                    (self.path_models / f"{cfg.run_name}.ckpt").unlink()
-                except FileNotFoundError:
-                    pass
+                if self.rank == 0:
+                    try:
+                        (self.path_models / f"{cfg.run_name}.ckpt").unlink()
+                    except FileNotFoundError:
+                        pass
                 self.stopped = True
                 break
 
-            # train phase: the loss sums stay on the device, one host sync
+            # train phase: the loss sums stay on the device, one host sync;
+            # every rank draws the global batch and takes its slice
             running = []
             for idx, w in epoch_batches(len(data.train), cfg.batch_size,
-                                        np_rng, shuffle=True):
+                                        np_rng, shuffle=True,
+                                        step_size=step_bs):
+                params = take_params(draw_params(aug_rng, len(idx), size),
+                                     lo, hi)
+                idx, w = idx[lo:hi], w[lo:hi]
                 images, labels, weights = self._batch(train_cache, idx, w)
-                params = draw_params(aug_rng, len(idx), size)
                 running.append(self.train_step(images, labels, weights,
                                                params))
-            train_loss = float(torch.stack(running).sum()) / len(data.train)
+            train_loss = float(all_reduce(torch.stack(running).sum())
+                               ) / len(data.train)
             train_hist.append(train_loss)
 
             if self._bn_layers():
-                self._precise_stats(data.train, cfg.batch_size)
+                self._precise_stats(data.train, step_bs)
 
             # val phase
             running = []
             for idx, w in epoch_batches(len(data.val), cfg.batch_size,
-                                        np_rng, shuffle=False):
+                                        np_rng, shuffle=False,
+                                        step_size=step_bs):
+                idx, w = idx[lo:hi], w[lo:hi]
                 images, labels, weights = self._batch(val_cache, idx, w)
                 running.append(self.eval_step(images, labels, weights))
-            val_loss = float(torch.stack(running).sum()) / len(data.val)
+            val_loss = float(all_reduce(torch.stack(running).sum())
+                             ) / len(data.val)
             val_hist.append(val_loss)
 
             msg = (f"{epoch + 1} / {run_epochs}: Loss train / val: "
@@ -364,19 +415,20 @@ class Trainer:
                 # the snapshot records best_loss; the checkpoint on disk
                 # must hold the matching weights
                 flush_best()
-                save_train_state(
-                    {"model": self.model.state_dict(),
-                     "optimizer": self.optimizer.state_dict(),
-                     "aug_rng": aug_rng.get_state()},
-                    {"epoch": epoch, "best_loss": float(best_loss),
-                     "epochs_wo_improvement": epochs_wo_improvement,
-                     "train_hist": train_hist, "val_hist": val_hist,
-                     "np_rng": np_rng.bit_generator.state,
-                     "sched": {k: v for k, v in scheduler.__dict__.items()
-                               if not k.startswith("_")},
-                     "second_run": second_run,
-                     "cfg": self._snapshot_fingerprint()},
-                    state_stem)
+                if self.rank == 0:
+                    save_train_state(
+                        {"model": self.model.state_dict(),
+                         "optimizer": self.optimizer.state_dict(),
+                         "aug_rng": aug_rng.get_state()},
+                        {"epoch": epoch, "best_loss": float(best_loss),
+                         "epochs_wo_improvement": epochs_wo_improvement,
+                         "train_hist": train_hist, "val_hist": val_hist,
+                         "np_rng": np_rng.bit_generator.state,
+                         "sched": {k: v for k, v in scheduler.__dict__.items()
+                                   if not k.startswith("_")},
+                         "second_run": second_run,
+                         "cfg": self._snapshot_fingerprint()},
+                        state_stem)
 
             self.progress(int(100 * (epoch + 1) / run_epochs))
 
@@ -389,6 +441,8 @@ class Trainer:
 
         if not self.stopped:
             flush_best()
+        if self.distributed:   # rank 0's files are on disk for every rank
+            torch.distributed.barrier()
         # the best weights, still on the device, for the second run and
         # the recalibration
         self._last_best = best_state if not self.stopped else None
@@ -398,7 +452,8 @@ class Trainer:
             self.text_output(
                 f"Training completed in {elapsed // 60:.0f}min "
                 f"{elapsed % 60:.0f}s")
-            self._write_loss_history(train_hist, val_hist, second_run)
+            if self.rank == 0:
+                self._write_loss_history(train_hist, val_hist, second_run)
             self._timing = {"training_time": elapsed,
                             "trained_epochs": epoch + 1,
                             "second_run": second_run}
@@ -421,14 +476,24 @@ class Trainer:
         hook in train mode, then mean* = E_b[mean_b] and var* = E_b[var_b]
         + Var_b[mean_b].  ``nn.BatchNorm2d`` keeps the unbiased variance in
         its running buffer and flax the biased one, so the moments are not
-        read back from the buffers."""
+        read back from the buffers.  In a process group each rank runs its
+        slice of every batch and the hook's moments are those of the whole
+        batch (summed over the ranks), as the JAX package's sharded
+        ``stat_step`` takes them."""
         layers = self._bn_layers()
         sums = {id(m): [0.0, 0.0, 0.0] for m in layers}
 
         def hook(m, inputs):
             x = inputs[0].float()
-            mean = x.mean(dim=(0, 2, 3))
-            var = x.var(dim=(0, 2, 3), unbiased=False)
+            if self.distributed:   # the global batch's moments
+                n = all_reduce(torch.full((1,), x.numel() / x.shape[1],
+                                          device=x.device))
+                mean = all_reduce(x.sum(dim=(0, 2, 3))) / n
+                var = all_reduce(((x - mean.view(1, -1, 1, 1)) ** 2).sum(
+                    dim=(0, 2, 3))) / n
+            else:
+                mean = x.mean(dim=(0, 2, 3))
+                var = x.var(dim=(0, 2, 3), unbiased=False)
             s = sums[id(m)]
             s[0], s[1], s[2] = s[0] + mean, s[1] + mean * mean, s[2] + var
 
@@ -436,12 +501,13 @@ class Trainer:
         n = images.shape[0]
         order = np.arange(n)
         n_batches = 0
+        lo, hi = self._rank_slice(step_bs)
         self.model.train()
         try:
             for start in range(0, n, step_bs):
                 idx = np.resize(order[start:] if start + step_bs > n
                                 else order[start:start + step_bs], step_bs)
-                batch = self._batch((images, {}), idx)[0]
+                batch = self._batch((images, {}), idx[lo:hi])[0]
                 with self._autocast():
                     self.model(normalize_val(batch))
                 n_batches += 1
@@ -475,10 +541,17 @@ class Trainer:
             state = state_dict_from_variables(load_variables(ckpt_path))
         self.model.load_state_dict(state)
         n = len(data.train)
-        self._precise_stats(data.train, min(self.cfg.batch_size, n))
-        save_checkpoint(self.model, ckpt_path)
+        self._precise_stats(data.train, pad_batch_to_devices(
+            min(self.cfg.batch_size, n), self.world))
+        if self.rank == 0:
+            save_checkpoint(self.model, ckpt_path)
         self.text_output(
             f"Recalibrated BatchNorm statistics over {n} train images")
+
+    def _rank_slice(self, step_bs: int):
+        """This rank's contiguous slots [lo, hi) of a step batch."""
+        per = step_bs // self.world
+        return self.rank * per, (self.rank + 1) * per
 
     # ------------------------------------------------------------------
     # snapshots and artefacts
@@ -559,8 +632,7 @@ class Trainer:
                 extra["trained_epochs_run2"] = self._timing["trained_epochs"]
             if not self.stopped:
                 self.recalibrate_batch_stats(data, self._last_best)
-                write_sidecar(cfg, self.path_models, extra)
-                self._drop_train_state()
+                self._finish(extra)
             return best
 
         warm = None
@@ -585,10 +657,17 @@ class Trainer:
             overall = self._last_best or overall
         if not self.stopped:
             self.recalibrate_batch_stats(data, overall)
-            write_sidecar(cfg, self.path_models, extra)
-            # a finished run leaves no snapshot for a later --resume
-            self._drop_train_state()
+            self._finish(extra)
         return best
+
+    def _finish(self, extra: Dict) -> None:
+        """The sidecar, on rank 0; a finished run leaves no snapshot for a
+        later --resume."""
+        if self.rank == 0:
+            write_sidecar(self.cfg, self.path_models, extra)
+            self._drop_train_state()
+        if self.distributed:
+            torch.distributed.barrier()
 
     def _drop_train_state(self) -> None:
         stem = self.path_models / f"{self.cfg.run_name}_state"

@@ -6,11 +6,19 @@ CreateLabelsWorker and TrainWorker, src/training/train.py:26-104,
 ladder (batch 16 -> 8 -> 4, then filters (64, 1024) -> (32, 512) ->
 (32, 256); reference :276-297) catches ``torch.OutOfMemoryError`` and
 errors whose text says the memory ran out.
+
+``run_training(num_devices=)`` trains data-parallel over that many
+devices: one spawned process per device in a process group
+(``parallel.mesh``), rank 0's messages and progress relayed to the
+callbacks, ``should_stop`` relayed to every rank.  A rank that fails fails
+the run with its error text, so the ladder sees an out-of-memory rank too.
 """
 
 from __future__ import annotations
 
 import os
+import queue as queue_mod
+import tempfile
 import zipfile
 from pathlib import Path
 from typing import Callable, Optional
@@ -19,6 +27,10 @@ import torch
 
 from microbeseg_torch.config import ModelConfig, TrainConfig, read_sidecar
 from microbeseg_torch.ops.labelgen import get_label, max_major_axis_length
+from microbeseg_torch.parallel.mesh import (destroy_process_group,
+                                            file_init_method, get_mesh,
+                                            init_process_group, rank_device,
+                                            spawn)
 from microbeseg_torch.training.data import TrainingData
 from microbeseg_torch.training.trainer import Trainer
 from microbeseg_torch.utils.device import resolve_device
@@ -99,7 +111,8 @@ def run_training(path_data: Path, path_models: Path, label_type: str,
                  train_state_every: int = 0,
                  resume: bool = False,
                  pretrained: Optional[Path] = None,
-                 device=None) -> bool:
+                 device=None,
+                 num_devices: Optional[int] = None) -> bool:
     """Train ``iterations`` models (reference TrainWorker.start_training,
     train.py:124-306): a new run name per iteration, the activation tied
     to the optimizer (mish with ranger, relu with adam; reference :174),
@@ -111,9 +124,13 @@ def run_training(path_data: Path, path_models: Path, label_type: str,
     from the batch statistics under small batches and heavy augmentation.
     pretrained: checkpoint stem to warm-start each iteration's first run
     from.  Its architecture must match the model; when the ladder would
-    narrow the model below it, training stops with a message."""
+    narrow the model below it, training stops with a message.
+    num_devices: data-parallel devices (None: every visible card; with
+    ``device="cpu"``, that many CPU ranks, one when None).  At 1 the model
+    trains in this process."""
     path_data, path_models = Path(path_data), Path(path_models)
     resolve_device(device)
+    n_ranks = get_mesh(num_devices, device).size
     if (len(list((path_data / "train").glob("mask*"))) < 2
             or len(list((path_data / "val").glob("mask*"))) < 2):
         text_output("Not enough annotated images. Stop")
@@ -124,7 +141,9 @@ def run_training(path_data: Path, path_models: Path, label_type: str,
     warm_filters = _pretrained_filters(pretrained)
 
     text_output("Start training")
-    data = TrainingData.from_directory(path_data, label_type=label_type)
+    # the ranks of a data-parallel run read the set themselves
+    data = (TrainingData.from_directory(path_data, label_type=label_type)
+            if n_ranks == 1 else None)
 
     for i in range(iterations):
         if should_stop():
@@ -162,14 +181,21 @@ def run_training(path_data: Path, path_models: Path, label_type: str,
                 seed=seed + i, max_epochs=max_epochs,
                 train_state_every=train_state_every)
             trainer = None
+            step_progress = (lambda p, i=i: progress(
+                int((p + 100 * i) / iterations)))
             try:
+                if n_ranks > 1:
+                    stopped = _fit_ranks(
+                        n_ranks, cfg, path_data, path_models, label_type,
+                        device, text_output, step_progress, should_stop,
+                        print_output, resume and i == 0, pretrained)
+                    break
                 trainer = Trainer(cfg, path_models, text_output=text_output,
                                   should_stop=should_stop,
-                                  progress=lambda p, i=i: progress(
-                                      int((p + 100 * i) / iterations)),
-                                  device=device)
+                                  progress=step_progress, device=device)
                 trainer.fit(data, print_output=print_output,
                             resume=resume and i == 0, init_from=pretrained)
+                stopped = trainer.stopped
                 break
             except Exception as exc:  # out-of-memory ladder (reference :276-297)
                 if not _is_oom(exc):
@@ -197,11 +223,80 @@ def run_training(path_data: Path, path_models: Path, label_type: str,
                     text_output("Please, try again with smaller batch size or "
                                 "reduce the crop size")
                     return False
-        if trainer.stopped:
+        if stopped:
             return False
         _zip_trainset(path_data, path_models / f"{run_name}_trainset.zip")
         progress(int(100 * (i + 1) / iterations))
     return True
+
+
+def _fit_ranks(n_ranks: int, cfg: TrainConfig, path_data: Path,
+               path_models: Path, label_type: str, device,
+               text_output: Callable[[str], None],
+               progress: Callable[[int], None],
+               should_stop: Callable[[], bool], print_output: bool,
+               resume: bool, init_from: Optional[Path]) -> bool:
+    """``Trainer.fit`` on ``n_ranks`` spawned processes; returns whether the
+    run was stopped.  Rank 0's messages and progress come back through a
+    queue; ``should_stop`` is polled here and relayed as an event."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    messages, stop = ctx.Queue(), ctx.Event()
+    stopped = [False]
+
+    def poll():
+        if should_stop():
+            stop.set()
+        while True:
+            try:
+                kind, value = messages.get_nowait()
+            except queue_mod.Empty:
+                return
+            if kind == "text":
+                text_output(value)
+            elif kind == "progress":
+                progress(value)
+            else:
+                stopped[0] = value
+
+    with tempfile.TemporaryDirectory() as rendezvous:
+        spawn(_train_rank,
+              (n_ranks, file_init_method(rendezvous), cfg, path_data,
+               path_models, label_type,
+               None if device is None else str(device), messages, stop,
+               print_output, resume, init_from, torch.get_num_threads()),
+              n_ranks, timeout_s=float("inf"), poll=poll)
+    return stopped[0]
+
+
+def _train_rank(rank: int, world: int, init_method: str, cfg: TrainConfig,
+                path_data: Path, path_models: Path, label_type: str,
+                device: Optional[str], messages, stop, print_output: bool,
+                resume: bool, init_from: Optional[Path],
+                n_threads: int) -> None:
+    """One rank of ``_fit_ranks`` (a spawned process)."""
+    torch.set_num_threads(n_threads)
+    dev = rank_device(rank, device)
+    init_process_group(rank, world, init_method, dev)
+    try:
+        def say(msg):
+            messages.put(("text", msg))
+
+        def step(p):
+            messages.put(("progress", p))
+
+        data = TrainingData.from_directory(path_data, label_type=label_type)
+        trainer = Trainer(cfg, path_models,
+                          text_output=say if rank == 0 else _noop,
+                          progress=step if rank == 0 else _noop,
+                          should_stop=stop.is_set, device=dev)
+        trainer.fit(data, print_output=print_output and rank == 0,
+                    resume=resume, init_from=init_from)
+        if rank == 0:
+            messages.put(("stopped", trainer.stopped))
+    finally:
+        destroy_process_group()
 
 
 def _zip_trainset(path_data: Path, zip_path: Path) -> None:

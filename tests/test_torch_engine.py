@@ -415,12 +415,15 @@ def test_cli_quantize_reaches_the_engine(checkpoint, tmp_path, monkeypatch):
 def test_port_imports_without_jax_or_the_jax_package():
     """Every module of microbeseg_torch imports in a fresh process where
     jax, flax, msgpack, triton, pandas and microbeseg_tpu cannot be
-    imported; and no source names them in an import."""
+    imported (the GUI on the repo's fake Qt, installed first); and no
+    source names them in an import."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'flax', 'msgpack', 'triton', 'pandas',\n"
         "          'microbeseg_tpu'):\n"
         "    sys.modules[m] = None\n"
+        "from tests import fake_qt\n"
+        "fake_qt.install()\n"
         "import microbeseg_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    microbeseg_torch.__path__, 'microbeseg_torch.')]\n"
@@ -441,7 +444,7 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "training.trainer", "cli.train", "client.contours",
                 "client.native", "client.store", "client.workers",
                 "cli.serve", "cli.infer_store", "models.torch_import",
-                "utils.profiling"):
+                "utils.profiling", "parallel.mesh", "gui.app"):
         assert (REPO / "microbeseg_torch" / (mod.replace(".", "/") + ".py")
                 ).is_file()
     banned = {"jax", "flax", "msgpack", "triton", "pandas", "microbeseg_tpu"}
