@@ -17,14 +17,20 @@
    (64, 128, 320, 512, 768); K3 connected components, K4 rank relabel and
    ``ranked_components`` (K4 for K3's ids: ranks straight from a mask, the
    entry the main paths call) at 16 x 256^2 on seeded blob fields, a speckle
-   field, an empty and a full mask; K2, the frame flood, on both of its
+   field, an empty and a full mask.  K3 is the one-launch tiled kernel; the
+   first port's three-pass route, kept for timing, is held beside it and
+   timed in turns with it (16 x 256^2, one 320^2 mask, 2048^2, 4096^2), and
+   ``torch.profiler`` must see exactly one device kernel in one
+   ``connected_components`` call (three for the three-pass route).  K2, the
+   frame flood, on both of its
    kernels (the front kernel that ``flood_tiled`` launches, and the first
    port's whole-frame sweep), with equal step
    and work counts and markers above 4095, on 2 x 1024^2 (also 2 levels),
    1000 x 1400 (also 2 levels), one 4096^2 and one 2048^2 field, timed in
    turns, with the front kernel's set-up and an empty mask's step timed
-   apart; K3, K4 and ``ranked_components`` again on one 2048^2 field and a
-   48 x 816 strip.
+   apart; K3, K4 and ``ranked_components`` again on one 2048^2 field (K3
+   also on a one-pixel serpentine through every tile) and a 48 x 816 strip,
+   and K3 on the 4096^2 field's seeds.
    K4's yardstick is the same function in PyTorch calls (root ranks, then a
    gather), with the bare gather beside it; ``ranked_components`` is timed in
    turns with K3 alone and with K3 followed by that library route.  K5, the
@@ -107,8 +113,12 @@
    (integer types exactly, float types within 1e-5).  Checks that K3
    (``connected_components``, the gap step) launched.  Times label
    generation a mask, and K3 alone on the gap mask the path gives it
-   (1 x 256^2) beside its plain version and bound; these become K3's times
-   in the kernel line (the 16 x 256^2 ones stay under ``*_b16``).
+   (1 x 256^2), 4- and 8-connected exactly equal to the plain version,
+   timed in turns with the three-pass route, with the host's enqueue
+   against the device time of one call of each, beside its plain version,
+   its bound and the launch floor (one empty kernel, plain and cooperative,
+   through the same ``ctypes`` route); these become K3's times in the
+   kernel line (the 16 x 256^2 ones stay under ``*_b16``).
 
 11. Training: ``create_labels`` on the glutamicum split of
    scripts/real_data_eval.py (train 0-34, val 35-39, test 40-49, polarity
@@ -315,6 +325,96 @@ def stream_handle_us(dev, reps: int = 20000) -> dict:
     return out
 
 
+def device_kernels(fn) -> list:
+    """Names of the device activities (kernels, copies, sets) of one call
+    of ``fn``, from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA
+            and not ev.name.startswith("Activity Buffer")]
+
+
+def ptxas_report(log: str, kernel: str) -> list:
+    """The ``-Xptxas -v`` lines of one kernel in a source's build log."""
+    lines, inside = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            inside = kernel in ln
+        if inside and ("Used" in ln or "spill" in ln):
+            lines.append(ln.strip())
+    return lines
+
+
+def k3_snake(size, tile=64):
+    """(1, size, size) bool: a one-pixel serpentine on the last row of every
+    tile row, joined at alternating ends, one component that crosses every
+    tile of the tiled K3 kernel (64^2 tiles at 2048^2)."""
+    m = np.zeros((size, size), bool)
+    rows = list(range(tile - 1, size, tile))
+    for k, y in enumerate(rows):
+        m[y] = True
+        if k + 1 < len(rows):
+            m[y:rows[k + 1] + 1, size - 1 if k % 2 == 0 else 0] = True
+    return m[None]
+
+
+def k3_turns(mask, reps, plain_reps):
+    """K3 on ``mask``: the tiled kernel (``ms``) and the first port's
+    three-pass route (``threepass_ms``) in turns (tiled, three-pass,
+    three-pass, tiled; the lesser of each two), and the plain version."""
+    from microbeseg_torch.ops import cc
+
+    routes = dict(ms=cc.connected_components,
+                  threepass_ms=cc.connected_components_threepass)
+    turns = {k: [] for k in routes}
+    for k in ("ms", "threepass_ms", "threepass_ms", "ms"):
+        turns[k].append(cuda_ms(lambda: routes[k](mask), reps))
+    return dict(ms=min(turns["ms"]), threepass_ms=min(turns["threepass_ms"]),
+                turns=turns,
+                plain_ms=cuda_ms(lambda: cc.connected_components_plain(mask),
+                                 plain_reps, warmup=1))
+
+
+def k3_split(mask) -> dict:
+    """Host enqueue against device time of one K3 call, tiled and
+    three-pass (``host_and_device``)."""
+    from microbeseg_torch.ops import cc
+
+    new = host_and_device(lambda: cc.connected_components(mask), reps=200)
+    old = host_and_device(
+        lambda: cc.connected_components_threepass(mask), reps=200)
+    return dict(host_ms=new["host_ms"], device_us=new["device_us"],
+                threepass_host_ms=old["host_ms"],
+                threepass_device_us=old["device_us"])
+
+
+def launch_floor(dev) -> dict:
+    """One empty kernel through the same ``ctypes`` route as the kernels
+    (``csrc/cc.cu::cc_empty_launch``), a plain launch and a cooperative one:
+    event ms a call in a loop, the host's enqueue ms and the device us."""
+    from microbeseg_torch.kernels import _build
+
+    probe = torch.empty((1,), device=dev)
+    entry = _build.entry("cc", "cc_empty_launch", 0, 1)
+    out = {}
+    for name, coop in (("plain", 0), ("cooperative", 1)):
+        def launch():
+            _build.check(entry(coop, _build.stream_ptr(probe)),
+                         "cc_empty_launch")
+        split = host_and_device(launch, reps=500)
+        out[name] = dict(ms=cuda_ms(launch, 500), host_ms=split["host_ms"],
+                         device_us=sum(split["device_us"].values()))
+    return out
+
+
 def blob_fields(rng, n, size, n_blobs):
     """(n, size, size) float32 cell-like fields: cones of radius 5-14 plus
     noise, max 1 at the centres."""
@@ -435,22 +535,47 @@ def check_kernels(dev, report):
                                  f"max abs err {err}")
         return err
 
-    # K3 connected components: blob seeds and a speckle field
+    # K3 connected components, the tiled kernel, and the first port's
+    # three-pass route kept for timing: blob seeds, a speckle field, an
+    # empty and a full mask
     seeds_bin = cell > 0.6
     for conn in (1, 2):
-        for field in (seeds_bin, speckle):
-            exact("K3", cc.connected_components(field, conn),
-                  cc.connected_components_plain(field, conn))
+        for field in (seeds_bin, speckle, torch.zeros_like(speckle),
+                      torch.ones_like(speckle)):
+            want = cc.connected_components_plain(field, conn)
+            exact("K3", cc.connected_components(field, conn), want)
+            exact("K3 three-pass",
+                  cc.connected_components_threepass(field, conn), want)
+    # one call, one device kernel; the three-pass route shows three
+    kernels = device_kernels(lambda: cc.connected_components(seeds_bin))
+    if len(kernels) != 1 or "cc_tile_kernel" not in kernels[0]:
+        raise AssertionError(f"connected_components launched {kernels}")
+    old_kernels = device_kernels(
+        lambda: cc.connected_components_threepass(seeds_bin))
+    if len(old_kernels) != 3:
+        raise AssertionError(f"three-pass route launched {old_kernels}")
     labels = cc.connected_components(seeds_bin)
     labels_speckle = cc.connected_components(speckle)
-    k3_ms = cuda_ms(lambda: cc.connected_components(seeds_bin), 50)
-    k3_plain = cuda_ms(lambda: cc.connected_components_plain(seeds_bin), 3,
-                       warmup=1)
-    results["connected_components"] = dict(
-        source="microbeseg_torch/csrc/cc.cu",
-        replaces="microbeseg_tpu/ops/pallas/propagate.py:133",
-        max_abs_err=0, ms=k3_ms, plain_ms=k3_plain, library_ms=None,
-        bytes=px * (1 + 4), ops=px * 8)
+    k3 = k3_turns(seeds_bin, 50, 3)
+    # the training crop's size, one mask
+    crop320 = gaussian_filter(torch.from_numpy(blob_fields(
+        np.random.default_rng(320), 1, 320, 60)).to(dev), 0.5) > 0.6
+    exact("K3 320", cc.connected_components(crop320),
+          cc.connected_components_plain(crop320))
+    k3_320 = k3_turns(crop320, 50, 3)
+    for name, ms in (("connected_components", "ms"),
+                     ("connected_components_threepass", "threepass_ms")):
+        results[name] = dict(
+            source="microbeseg_torch/csrc/cc.cu",
+            replaces="microbeseg_tpu/ops/pallas/propagate.py:133",
+            max_abs_err=0, ms=k3[ms], plain_ms=k3["plain_ms"],
+            library_ms=None, bytes=px * (1 + 4), ops=px * 8,
+            ms_320=k3_320[ms], plain_ms_320=k3_320["plain_ms"],
+            bytes_320=320 * 320 * 5, ops_320=320 * 320 * 8)
+    results["connected_components"].update(
+        device_kernels=kernels, threepass_device_kernels=old_kernels,
+        turns=k3["turns"], turns_320=k3_320["turns"],
+        ptxas=report["ptxas_k3"])
 
     # K4 rank relabel: CC ids of both fields, and 4-connected ids
     for lab in (labels, labels_speckle, cc.connected_components(speckle, 1)):
@@ -523,7 +648,7 @@ def check_kernels(dev, report):
     check_big_kernels(dev, rng, results, exact)
     check_matmul(dev, results)
     for r in results.values():
-        for suffix in ("", "_2048", "_4096"):
+        for suffix in ("", "_320", "_2048", "_4096"):
             if "bytes" + suffix not in r:
                 continue
             t_bytes = r.pop("bytes" + suffix) / HBM_BYTES_PER_S * 1e3
@@ -743,6 +868,7 @@ def check_big_kernels(dev, rng, results, exact):
     cell, markers, mask = fields(1, (BIG4, BIG4), BIG4_BLOBS)
     sizes[f"1x{BIG4}x{BIG4}"] = k4 = k2_forms(flood, -cell, markers, mask,
                                                 128, reps=5)
+    seeds4 = cell > 0.6   # K3 at 4096^2: more tiles than the card holds
     cell, markers, mask = fields(1, (BIG, BIG), BIG_BLOBS)
     sizes[f"1x{BIG}x{BIG}"] = k2 = k2_forms(flood, -cell, markers, mask,
                                               128, reps=10)
@@ -771,9 +897,14 @@ def check_big_kernels(dev, rng, results, exact):
 
     seeds_bin = cell > 0.6
     speckle = torch.from_numpy(rng.random((1, BIG, BIG)) < 0.35).to(dev)
-    for field in (seeds_bin, speckle & mask):
+    # K3: also a serpentine through every tile (one id carried across 1024
+    # tiles) and, at 4096^2, the blob seeds
+    snake = torch.from_numpy(k3_snake(BIG)).to(dev)
+    for field in (seeds_bin, speckle & mask, snake):
         exact("K3 2048", cc.connected_components(field),
               cc.connected_components_plain(field))
+    exact("K3 4096", cc.connected_components(seeds4),
+          cc.connected_components_plain(seeds4))
     labels = cc.connected_components(seeds_bin)
     for lab in (labels, cc.connected_components(speckle & mask, 1)):
         exact("K4 2048", cc.sequentialize_components(lab),
@@ -789,11 +920,21 @@ def check_big_kernels(dev, rng, results, exact):
     strip = speckle[:, :48, :816].contiguous()
     exact("ranked_components strip", cc.ranked_components(strip),
           cc.ranked_components_plain(strip))
+    for conn in (1, 2):
+        exact("K3 strip", cc.connected_components(strip, conn),
+              cc.connected_components_plain(strip, conn))
+    k3 = k3_turns(seeds_bin, 20, 1)
+    k3_4096 = k3_turns(seeds4, 10, 1)
+    for name, ms in (("connected_components", "ms"),
+                     ("connected_components_threepass", "threepass_ms")):
+        results[name].update(
+            ms_2048=k3[ms], plain_ms_2048=k3["plain_ms"],
+            bytes_2048=px * (1 + 4), ops_2048=px * 8,
+            ms_4096=k3_4096[ms], plain_ms_4096=k3_4096["plain_ms"],
+            bytes_4096=BIG4 * BIG4 * (1 + 4), ops_4096=BIG4 * BIG4 * 8)
     results["connected_components"].update(
-        ms_2048=cuda_ms(lambda: cc.connected_components(seeds_bin), 20),
-        plain_ms_2048=cuda_ms(
-            lambda: cc.connected_components_plain(seeds_bin), 1, warmup=1),
-        bytes_2048=px * (1 + 4), ops_2048=px * 8)
+        turns_2048=k3["turns"], turns_4096=k3_4096["turns"],
+        **{k + "_2048": v for k, v in k3_split(seeds_bin).items()})
     results["sequentialize_components"].update(
         ms_2048=cuda_ms(lambda: cc.sequentialize_components(labels), 20),
         plain_ms_2048=cuda_ms(
@@ -2738,22 +2879,32 @@ def labels_path(dev, report):
     if tuple(gap.shape) != (1, SIDE, SIDE) or not gap.any():
         raise AssertionError(f"gap mask {tuple(gap.shape)}, "
                              f"{int(gap.sum())} px")
-    err = (cc.connected_components(gap).to(torch.int64)
-           - cc.connected_components_plain(gap)).abs().max().item()
-    if err:
-        raise AssertionError(f"K3 on the gap mask: max abs err {err}")
+    for conn in (1, 2):
+        want = cc.connected_components_plain(gap, conn)
+        for route in (cc.connected_components,
+                      cc.connected_components_threepass):
+            err = (route(gap, conn).to(torch.int64) - want).abs().max().item()
+            if err:
+                raise AssertionError(f"K3 ({route.__name__}) on the gap "
+                                     f"mask: max abs err {err}")
     px = gap.numel()
-    k3 = report["kernels"]["connected_components"]
-    for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
-        k3[key + "_b16"] = k3[key]
     t_bytes = px * (1 + 4) / HBM_BYTES_PER_S * 1e3
     t_ops = px * 8 / INT_OPS_PER_S * 1e3
-    k3.update(shape=[1, SIDE, SIDE], gap_px=int(gap.sum()),
-              ms=cuda_ms(lambda: cc.connected_components(gap), 50),
-              plain_ms=cuda_ms(lambda: cc.connected_components_plain(gap), 3,
-                               warmup=1),
-              bound_ms=max(t_bytes, t_ops),
-              bound_by="bytes" if t_bytes >= t_ops else "operations")
+    turns = k3_turns(gap, 200, 3)
+    k3_host = k3_split(gap)
+    floor = launch_floor(dev)
+    for name, ms in (("connected_components", "ms"),
+                     ("connected_components_threepass", "threepass_ms")):
+        k3 = report["kernels"][name]
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+            k3[key + "_b16"] = k3[key]
+        k3.update(shape=[1, SIDE, SIDE], gap_px=int(gap.sum()),
+                  ms=turns[ms], plain_ms=turns["plain_ms"],
+                  bound_ms=max(t_bytes, t_ops),
+                  bound_by="bytes" if t_bytes >= t_ops else "operations")
+    k3 = report["kernels"]["connected_components"]
+    k3.update(turns_gap=turns["turns"], launch_floor=floor, **k3_host)
+    old = report["kernels"]["connected_components_threepass"]
     out.update(seconds=seconds, ms_per_mask=seconds * 1e3 / 50,
                card_vs_cpu_max_abs_err=errs, launches=launches,
                get_label_distance=split)
@@ -2764,10 +2915,21 @@ def labels_path(dev, report):
           f"{split['host_ms']:.3f} ms of host time, its kernels "
           f"{split['device_ms']:.3f} ms of device time (largest, us: "
           f"{split['top_device_us']}); launches connected_components "
-          f"{launches['connected_components']}; K3 on the path's gap mask "
-          f"(1 x {SIDE}^2, {k3['gap_px']} px set) {k3['ms']:.5f} ms, plain "
-          f"{k3['plain_ms']:.4f} ms, bound {k3['bound_ms']:.6f} ms "
-          f"({k3['bound_by']})", flush=True)
+          f"{launches['connected_components']}", flush=True)
+    print(f"K3 on the path's gap mask (1 x {SIDE}^2, {k3['gap_px']} px set), "
+          f"in turns: tiled kernel {k3['ms']:.5f} ms, three-pass route "
+          f"{old['ms']:.5f} ms (turns {k3['turns_gap']}), plain "
+          f"{k3['plain_ms']:.4f} ms, bound {k3['bound_ms']:.7f} ms "
+          f"({k3['bound_by']}); host enqueue / device us: tiled "
+          f"{k3['host_ms']:.5f} ms / {k3['device_us']}, three-pass "
+          f"{k3['threepass_host_ms']:.5f} ms / {k3['threepass_device_us']}; "
+          f"launch floor through ctypes (event ms, host ms, device us): "
+          f"{floor}", flush=True)
+    for key in ("b16", "320", "2048", "4096"):
+        print(f"K3 at {key}: tiled {k3['ms_' + key]:.5f} ms, three-pass "
+              f"{old['ms_' + key]:.5f} ms, plain "
+              f"{k3['plain_ms_' + key]:.4f} ms, bound "
+              f"{k3['bound_ms_' + key]:.6f} ms", flush=True)
     return launches
 
 
@@ -3708,6 +3870,8 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     report["ptxas"] = {k: [ln for ln in v.splitlines() if "Used" in ln]
                        for k, v in logs.items()}
+    report["ptxas_k3"] = ptxas_report(logs.get("cc", ""), "cc_tile_kernel")
+    print(f"ptxas, cc_tile_kernel: {report['ptxas_k3']}", flush=True)
     print(f"built {sorted(logs)} in {report['build_s']:.1f} s", flush=True)
 
     check_kernels(dev, report)
@@ -3755,8 +3919,10 @@ def main() -> int:
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{k: v for k, v in r.items()
-                       if k.endswith(("_2048", "_4096", "_b16")) or k in (
-                           "gap_px",
+                       if k.endswith(("_320", "_2048", "_4096", "_b16"))
+                       or k.startswith(("turns", "threepass_")) or k in (
+                           "gap_px", "launch_floor", "device_kernels",
+                           "ptxas",
                            "shape", "shapes", "host_ms", "device_us",
                            "steps_per_image", "us_per_step", "sides",
                            "setup_ms", "setup_and_levels_ms",

@@ -37,6 +37,7 @@ SOURCES = ("flood", "flood_frame", "cc", "matmul")
 LAUNCHES: Dict[str, int] = {"flood_packed": 0, "flood_packed_cluster": 0,
                             "flood_tiled": 0, "flood_tiled_grid": 0,
                             "connected_components": 0,
+                            "connected_components_threepass": 0,
                             "sequentialize_components": 0,
                             "ranked_components": 0,
                             "matmul_int8": 0, "matmul_bf16": 0,

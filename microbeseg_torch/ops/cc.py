@@ -15,8 +15,11 @@ of its root (the pixel whose linear index + 1 equals its id), spread over
 
 The JAX package runs both as neighbour-max sweep loops (with the Pallas
 window warm starts ``cc_warmstart`` / ``rank_warmstart`` on big frames).  In
-the port each is one CUDA kernel at every frame size (``csrc/cc.cu``, a
-union-find that links toward the larger index).  The plain versions below
+the port each is a CUDA union-find that links toward the larger index, at
+every frame size (``csrc/cc.cu``): ``connected_components`` one cooperative
+launch of tile-local forests in shared memory whose tile borders are merged
+behind a grid barrier, the others three to five launches over every
+pixel.  The plain versions below
 run the JAX sweeps, checking convergence every 4 sweeps as the JAX loops'
 ``steps_per_check`` does; CPU tensors take them, CUDA tensors take the
 kernels.
@@ -122,23 +125,51 @@ def _launch(name: str, entry: str, n_ptrs: int, n_ints: int, args) -> None:
     _build.count_launch(name)
 
 
+def _cuda_mask(mask: torch.Tensor, connectivity: int, what: str):
+    """(B, H, W) contiguous bool mask of a CUDA tensor, squeeze flag."""
+    if mask.device.type != "cuda":
+        raise RuntimeError(f"{what}: unsupported device {mask.device}")
+    if connectivity not in (1, 2):
+        raise ValueError(f"connectivity must be 1 or 2, got {connectivity}")
+    B, H, W = (1, *mask.shape) if mask.ndim == 2 else mask.shape
+    if B * H * W >= 1 << 31:
+        raise ValueError(f"{what}: {B} x {H} x {W} pixels do not fit the "
+                         "kernel's int32 indices")
+    if mask.dtype != torch.bool:
+        mask = mask.to(torch.bool)
+    return _batch(mask.contiguous())
+
+
 def connected_components(mask: torch.Tensor,
                          connectivity: int = 2) -> torch.Tensor:
     """Label connected regions: (B, H, W) or (H, W) bool -> int32 ids (the
     component's max linear index + 1, 0 for background).  connectivity 2 =
-    8-connected, 1 = 4-connected.  CPU tensors run the plain version."""
+    8-connected, 1 = 4-connected.  CPU tensors run the plain version; CUDA
+    tensors one launch of ``csrc/cc.cu::cc_tile_kernel``, with the parent
+    plane kept in the output."""
     if mask.device.type == "cpu":
         return connected_components_plain(mask, connectivity)
-    if mask.device.type != "cuda":
-        raise RuntimeError(f"connected_components: unsupported device "
-                           f"{mask.device}")
-    if connectivity not in (1, 2):
-        raise ValueError(f"connectivity must be 1 or 2, got {connectivity}")
-    m, squeeze = _batch(mask.to(torch.bool).contiguous())
+    m, squeeze = _cuda_mask(mask, connectivity, "connected_components")
+    B, H, W = m.shape
+    out = torch.empty_like(m, dtype=torch.int32)
+    _launch("connected_components", "cc_tile_launch", 2, 4,
+            (_build.ptr(m), _build.ptr(out), B, H, W, connectivity,
+             _build.stream_ptr(m)))
+    return out[0] if squeeze else out
+
+
+def connected_components_threepass(mask: torch.Tensor,
+                                   connectivity: int = 2) -> torch.Tensor:
+    """The first port of K3 (``csrc/cc.cu::cc_launch_threepass``: three
+    launches and a parent plane of its own), the same ids as
+    ``connected_components``.  No path of the package calls it; it stays
+    for timing beside the tiled kernel.  CUDA tensors only."""
+    m, squeeze = _cuda_mask(mask, connectivity,
+                            "connected_components_threepass")
     B, H, W = m.shape
     out = torch.empty((B, H, W), dtype=torch.int32, device=m.device)
     parent = torch.empty((B, H, W), dtype=torch.int32, device=m.device)
-    _launch("connected_components", "cc_launch", 3, 4,
+    _launch("connected_components_threepass", "cc_launch_threepass", 3, 4,
             (_build.ptr(m), _build.ptr(parent), _build.ptr(out), B, H, W,
              connectivity, _build.stream_ptr(m)))
     return out[0] if squeeze else out
@@ -160,16 +191,8 @@ def ranked_components(mask: torch.Tensor,
     image, 0 for background.  CPU tensors run the plain version."""
     if mask.device.type == "cpu":
         return ranked_components_plain(mask, connectivity)
-    if mask.device.type != "cuda":
-        raise RuntimeError(f"ranked_components: unsupported device "
-                           f"{mask.device}")
-    if connectivity not in (1, 2):
-        raise ValueError(f"connectivity must be 1 or 2, got {connectivity}")
-    m, squeeze = _batch(mask.to(torch.bool).contiguous())
+    m, squeeze = _cuda_mask(mask, connectivity, "ranked_components")
     B, H, W = m.shape
-    if B * H * W >= 1 << 31:
-        raise ValueError(f"ranked_components: {B} x {H} x {W} pixels do not "
-                         "fit the kernel's int32 indices")
     out = torch.empty((B, H, W), dtype=torch.int32, device=m.device)
     parent = torch.empty((B, H, W), dtype=torch.int32, device=m.device)
     # roots per block of _RANK_BLOCK pixels, then their prefix per image

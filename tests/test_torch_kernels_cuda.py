@@ -58,6 +58,122 @@ def test_kernels_match_plain(dev, shape):
             rtol=0, atol=0)
 
 
+# csrc/cc.cu's tiles are 32^2 or 64^2 pixels: every K3_CORNER-th row and
+# column is a tile edge of both
+K3_CORNER = 32
+
+
+def _k3_snake(H, W, tile=64):
+    """A one-pixel serpentine on the last row of every tile row, joined at
+    alternating ends: one component that crosses every tile."""
+    m = np.zeros((H, W), bool)
+    rows = list(range(min(tile, H) - 1, H, tile))
+    for k, y in enumerate(rows):
+        m[y] = True
+        if k + 1 < len(rows):
+            m[y:rows[k + 1] + 1, W - 1 if k % 2 == 0 else 0] = True
+    return m
+
+
+def _k3_masks(seed, B, H, W):
+    """K3's cases on one shape, numpy bool (B, H, W): blobs, gap-like thin
+    segments, dense speckle, tiles in a checkerboard with single-pixel
+    diagonals through the tile corners (4- and 8-connectivity differ
+    there), an empty and a full mask."""
+    rng = np.random.default_rng(seed)
+    cell, _ = _fields(seed, B, H, W)
+    gaps = np.zeros((B, H, W), bool)
+    steps = ((0, 1), (1, 0), (1, 1), (1, -1))
+    for b in range(B):
+        for _ in range(max(4, H * W // 1500)):
+            y, x = rng.integers(0, H), rng.integers(0, W)
+            dy, dx = steps[rng.integers(0, 4)]
+            for k in range(rng.integers(2, 13)):
+                if 0 <= y + k * dy < H and 0 <= x + k * dx < W:
+                    gaps[b, y + k * dy, x + k * dx] = True
+    yy, xx = np.mgrid[0:H, 0:W]
+    T = K3_CORNER
+    checker = (((yy // T + xx // T) % 2 == 0) | (yy - xx == T)
+               | (yy + xx == 2 * T - 1))
+    return {"blobs": cell > 0.6, "gaps": gaps,
+            "speckle": rng.random((B, H, W)) < 0.45,
+            "checker": np.repeat(checker[None], B, axis=0),
+            "empty": np.zeros((B, H, W), bool),
+            "full": np.ones((B, H, W), bool)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 256, 256), (1, 320, 320), (3, 30, 46),
+                                   (2, 12, 700), (1, 48, 816),
+                                   (16, 256, 256), (1, 1000, 1402)])
+def test_cc_tile_kernel_matches_plain(dev, shape):
+    """K3's one-launch tiled kernel bit for bit against the plain version,
+    4- and 8-connected, on shapes the tiles do and do not divide (32^2 tiles
+    below 132 tiles of 64^2, 64^2 tiles from 16 x 256^2 on; 1402 columns
+    take the byte loads); the first port's three-pass route gives the same
+    ids."""
+    for name, mask in _k3_masks(sum(shape), *shape).items():
+        m = torch.from_numpy(mask).to(dev)
+        for conn in (1, 2):
+            want = cc.connected_components_plain(m, conn)
+            got = cc.connected_components(m, conn)
+            assert got.dtype == torch.int32 and got.shape == m.shape, name
+            torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                       msg=f"{name}, connectivity {conn}")
+            torch.testing.assert_close(
+                cc.connected_components_threepass(m, conn), want, rtol=0,
+                atol=0)
+    # one image, no batch axis; a mask that starts off a 4-byte boundary
+    torch.testing.assert_close(cc.connected_components(m[0]),
+                               cc.connected_components_plain(m[0]), rtol=0,
+                               atol=0)
+    flat = torch.from_numpy(_k3_masks(1, 1, *shape[1:])["blobs"]).to(dev)
+    shifted = torch.zeros(flat.numel() + 1, dtype=torch.bool, device=dev)
+    shifted[1:] = flat.reshape(-1)
+    view = shifted[1:].view(flat.shape)
+    torch.testing.assert_close(cc.connected_components(view),
+                               cc.connected_components_plain(view), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2048, 2048), (2, 2048, 2048)])
+def test_cc_tile_kernel_snake_crosses_every_tile(dev, shape):
+    """A serpentine through every tile of a 2048^2 frame: one component
+    whose id, the last pixel's linear index + 1, must travel across 1024
+    tiles.  With 2 frames the tiles outnumber the blocks that fit on the
+    card, so Phase C rebuilds each block's forests."""
+    B, H, W = shape
+    snake = _k3_snake(H, W)
+    masks = np.stack([snake] + [_k3_masks(5, 1, H, W)["checker"][0]]
+                     * (B - 1))
+    m = torch.from_numpy(masks).to(dev)
+    for conn in (1, 2):
+        got = cc.connected_components(m, conn)
+        torch.testing.assert_close(
+            got, cc.connected_components_plain(m, conn), rtol=0, atol=0)
+        last = int(np.flatnonzero(snake)[-1])
+        assert set(got[0][m[0]].unique().tolist()) == {last + 1}
+
+
+@pytest.mark.cuda
+def test_cc_tile_kernel_4096_and_refusals(dev):
+    """4096^2 (4096 tiles, more than the card holds at once) on blobs and
+    the checkerboard, and the wrapper's refusals."""
+    masks = _k3_masks(9, 1, 4096, 4096)
+    for name in ("blobs", "checker"):
+        m = torch.from_numpy(masks[name]).to(dev)
+        torch.testing.assert_close(cc.connected_components(m),
+                                   cc.connected_components_plain(m), rtol=0,
+                                   atol=0, msg=name)
+    huge = torch.zeros(1, dtype=torch.bool, device=dev).expand(2, 32768,
+                                                               32768)
+    with pytest.raises(ValueError, match="int32 indices"):
+        cc.connected_components(huge)
+    with pytest.raises(ValueError, match="connectivity"):
+        cc.connected_components(m, 3)
+
+
 def _flood_cases(seed, B, H, W):
     """(name, value, markers, mask) numpy inputs for K1 on one shape: blobs
     with their seeds' ids, an empty mask, a full mask with two seeds, every
