@@ -190,11 +190,25 @@
    ``ranked_components`` launched) stores the masks ``segment`` gives with
    the window's settings; its crop review once, pre-labelled, one crop
    accepted with key 1.
+17. Rematerialisation (``build_unet(remat_policy=)``; counters from 0, no
+   kernel on this path): the flagship at full width as ``run_training``
+   builds it (mish, gn) and as ``ModelConfig()`` builds it (relu, bn),
+   through ``Trainer.forward_backward``.  In float32 with cuDNN
+   deterministic, a step with 'dots' and with 'nothing' equals the plain
+   step bit for bit (outputs, gradients, BatchNorm buffers), also for 'bn'
+   under a world-1 NCCL group; 'dots' runs no convolution again in the
+   backward pass, 'nothing' two a ConvBlock.  Under bf16 autocast: the
+   operators with 'conv' in their name are ``aten.convolution`` and its
+   backward, every convolution's input is bf16 (autocast reaches the
+   recomputation), and the gradients' largest relative difference from the
+   plain step stands beside that of two plain steps.  Times a bf16 step
+   (forward + backward + Ranger) at batch 4 and 16 of 256^2 with the three
+   policies in turns, with the peak memory of one step of each.
 
 The next-to-last line of stdout is a JSON object with one entry per kernel.
 Its ``launches`` are those of the full-width paths' own runs (steps 4, 5, 7
-without the narrow model, 8, 9, 10, 11, 12, 13, 15 and 16); what the side runs
-launched (K3 and the general K4 as the labelling function in step 4, the
+without the narrow model, 8, 9, 10, 11, 12, 13, 15, 16 and 17); what the side
+runs launched (K3 and the general K4 as the labelling function in step 4, the
 narrow model in step 7, step 14) stands apart as ``side_run_launches``.  Each wrapper's host enqueue time and
 the device time of every kernel it launches (``torch.profiler``) stand under
 ``host_ms`` and ``device_us``.  The last line is ``{"ok": true, "device":
@@ -3717,6 +3731,289 @@ def dp_path(dev, report, model):
     return launches
 
 
+REMAT_POLICIES = (None, "dots", "nothing")
+REMAT_BATCHES = (4, 16)
+REMAT_TURNS = 3
+
+
+def remat_models():
+    """The flagship as ``run_training`` builds it (mish, gn) and as
+    ``ModelConfig()`` builds it (relu, bn)."""
+    from microbeseg_torch.config import ModelConfig
+
+    return {"mish_gn": ModelConfig(act_fun="mish", normalization="gn"),
+            "relu_bn": ModelConfig()}
+
+
+def remat_steps(tr, state, batch, policies=REMAT_POLICIES, ops=None):
+    """One ``forward_backward`` of ``batch`` from ``state`` for each policy
+    (``set_remat_policy`` on the trainer's model): {policy: (outputs,
+    gradients, buffers, the convolutions that ran)}.  ``ops``: a set that
+    collects the names of the operators with 'conv' in them that the
+    dispatcher presents, and the dtypes of the convolutions' inputs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from microbeseg_torch.models.unet import set_remat_policy
+    from microbeseg_torch.training.optimizers import build_optimizer
+
+    class Convolutions(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if "conv" in str(func) and ops is not None:
+                ops.add(str(func))
+            if func is torch.ops.aten.convolution.default:
+                self.n += 1
+                if ops is not None:
+                    ops.add(f"input {args[0].dtype}")
+            return func(*args, **(kwargs or {}))
+
+    images, labels, weights = batch
+    out = {}
+    for policy in policies:
+        set_remat_policy(tr.model, policy)
+        tr.model.load_state_dict(state)
+        tr.optimizer = build_optimizer(tr.cfg, tr.model)[0]
+        preds = []
+        hook = tr.model.register_forward_hook(
+            lambda m, i, o: preds.append([t.detach().clone() for t in o]))
+        try:
+            with Convolutions() as convs:
+                tr.forward_backward(images, labels, weights)
+        finally:
+            hook.remove()
+        out[policy] = (preds[0], {n: p.grad.detach().clone() for n, p in
+                                  tr.model.named_parameters()},
+                       {n: b.detach().clone() for n, b in
+                        tr.model.named_buffers()}, convs.n)
+    set_remat_policy(tr.model, None)
+    return out
+
+
+def remat_bit_equal(steps, what):
+    """Every policy's step equal to the plain step bit for bit: outputs,
+    gradients, buffers (running statistics, ``num_batches_tracked``)."""
+    ref = steps[None]
+    for policy, got in steps.items():
+        for part, a, b in (("output", dict(enumerate(got[0])),
+                            dict(enumerate(ref[0]))),
+                           ("gradient", got[1], ref[1]),
+                           ("buffer", got[2], ref[2])):
+            for k, y in b.items():
+                x = a[k]
+                if not torch.equal(x, y):
+                    raise AssertionError(
+                        f"remat {what}, {policy}: {part} {k} differs from "
+                        f"the plain step by {float((x - y).abs().max())}")
+        tracked = {int(v) for k, v in got[2].items()
+                   if k.endswith("num_batches_tracked")}
+        if tracked - {1}:
+            raise AssertionError(f"remat {what}, {policy}: "
+                                 f"num_batches_tracked {tracked}")
+
+
+def remat_grad_rel(a, b):
+    """The largest, over the gradient leaves, norm of the difference over
+    the norm of ``b``'s leaf."""
+    return max(float((a[k].double() - v.double()).norm()
+                     / v.double().norm()) for k, v in b.items()
+               if float(v.double().norm()) > 0)
+
+
+def remat_path(dev, report):
+    """Phase 17: ConvBlock-level rematerialisation (``remat_policy`` None,
+    'dots', 'nothing') on the flagship at full width and depth, built as
+    ``run_training`` builds it (mish, gn) and as ``ModelConfig()`` builds
+    it (relu, bn), through ``Trainer.forward_backward`` and Ranger:
+
+    - float32, TF32 off, cuDNN deterministic: one step (batch 4 of 256^2)
+      of each policy equals the plain step bit for bit (outputs, gradients,
+      BatchNorm buffers, ``num_batches_tracked`` 1); 'dots' runs no
+      convolution again, 'nothing' 2 a ConvBlock;
+    - the same with 'bn' under a world-1 NCCL group (DDP, the cross-replica
+      BatchNorm, whose all-reduce runs again in the recomputation);
+    - bf16 autocast (the path's): the operators with 'conv' in their name
+      that the dispatcher presents (the one the 'dots' policy must name),
+      every convolution's input bf16 (autocast reaches the recomputation),
+      again 0 and 2 a ConvBlock recomputed, and the largest relative
+      gradient difference from the plain step beside that of two plain
+      steps;
+    - timed: a bf16 step (forward + backward + Ranger) at batch 4 and 16
+      of 256^2, the three policies in turns (median of CUDA-event times),
+      and in the first turn the peak memory of one step of each
+      (``max_memory_allocated`` after ``reset_peak_memory_stats``) beside
+      what was allocated before it."""
+    import tempfile
+
+    from microbeseg_torch.config import TrainConfig
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models.blocks import ConvBlock
+    from microbeseg_torch.models.unet import set_remat_policy
+    from microbeseg_torch.ops.augment import apply_params
+    from microbeseg_torch.parallel import mesh
+    from microbeseg_torch.training.optimizers import build_optimizer
+    from microbeseg_torch.training.trainer import Trainer, init_like_flax
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    rng = np.random.default_rng(53)
+    batches = {}
+    for n in REMAT_BATCHES:
+        images, labels, weights, params = dp_batch(rng, n)
+        img, lab = apply_params(torch.from_numpy(images).to(dev),
+                                {k: torch.from_numpy(v).to(dev)
+                                 for k, v in labels.items()}, params,
+                                "distance")
+        batches[n] = (img, lab, torch.from_numpy(weights).to(dev))
+    out = {"card": report["card"]}
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, mcfg in remat_models().items():
+            res = out[name] = {}
+            # float32: bit for bit, deterministic cuDNN
+            f32 = TrainConfig(model=mcfg, compute_dtype="float32",
+                              run_name="remat_f32")
+            tr = Trainer(f32, tmp / f"{name}_f32", device=dev)
+            n_blocks = sum(isinstance(m, ConvBlock)
+                           for m in tr.model.modules())
+            state = {k: v.clone() for k, v in
+                     init_like_flax(tr.model, 0).state_dict().items()}
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
+            try:
+                steps = remat_steps(tr, state, batches[4])
+                remat_bit_equal(steps, f"{name} float32")
+                groups = []
+                if name == "relu_bn":   # the cross-replica BatchNorm
+                    (tmp / "nccl").mkdir()
+                    mesh.init_process_group(
+                        0, 1, mesh.file_init_method(tmp / "nccl"), dev)
+                    try:
+                        ddp = Trainer(f32, tmp / "ddp", device=dev)
+                        groups = [type(m).__name__ for m in
+                                  ddp.model.modules()
+                                  if isinstance(m, torch.nn.BatchNorm2d)]
+                        if set(groups) != {"CrossReplicaBatchNorm2d"}:
+                            raise AssertionError(f"remat under NCCL: {groups}")
+                        dsteps = remat_steps(ddp, state, batches[4])
+                        remat_bit_equal(dsteps, "relu_bn float32 NCCL")
+                        res["nccl_backend"] = torch.distributed.get_backend()
+                        del ddp, dsteps
+                    finally:
+                        mesh.destroy_process_group()
+                    res["nccl_cross_replica_bn_layers"] = len(groups)
+            finally:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32,
+                 torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark) = flags
+            base = steps[None][3]
+            res["f32_recomputed_convs"] = {str(p): steps[p][3] - base
+                                           for p in REMAT_POLICIES}
+            if res["f32_recomputed_convs"] != {
+                    "None": 0, "dots": 0, "nothing": 2 * n_blocks}:
+                raise AssertionError(f"remat {name}: recomputed convolutions "
+                                     f"{res['f32_recomputed_convs']}")
+            del tr, steps
+
+            # bf16 (the path's): operators, autocast in the recomputation,
+            # gradients against two plain steps
+            bf16 = TrainConfig(model=mcfg, run_name="remat_bf16")
+            tr = Trainer(bf16, tmp / f"{name}_bf16", device=dev)
+            ops = set()
+            steps = remat_steps(tr, state, batches[4], ops=ops)
+            again = remat_steps(tr, state, batches[4], policies=(None,))
+            conv_ops = sorted(o for o in ops if o.startswith("aten."))
+            if set(conv_ops) != {"aten.convolution.default",
+                                 "aten.convolution_backward.default"} or (
+                    ops - set(conv_ops) != {"input torch.bfloat16"}):
+                raise AssertionError(f"remat {name} bf16: operators {ops}")
+            res["bf16_ops"] = sorted(ops)
+            res["bf16_recomputed_convs"] = {
+                str(p): steps[p][3] - steps[None][3] for p in REMAT_POLICIES}
+            if res["bf16_recomputed_convs"] != res["f32_recomputed_convs"]:
+                raise AssertionError(f"remat {name} bf16: recomputed "
+                                     f"convolutions "
+                                     f"{res['bf16_recomputed_convs']}")
+            res["bf16_grad_rel"] = {
+                "plain_vs_plain": remat_grad_rel(again[None][1],
+                                                 steps[None][1]),
+                **{p: remat_grad_rel(steps[p][1], steps[None][1])
+                   for p in ("dots", "nothing")}}
+            del steps, again
+
+            # timed, bf16: the policies in turns; in the first, one step's
+            # peak memory
+            for n in REMAT_BATCHES:
+                images, labels, weights = batches[n]
+                tr.model.load_state_dict(state)
+                tr.optimizer = build_optimizer(bf16, tr.model)[0]
+
+                def step():
+                    tr.forward_backward(images, labels, weights)
+                    tr.optimizer.step()
+
+                turns = {str(p): [] for p in REMAT_POLICIES}
+                peak = {}
+                for turn in range(REMAT_TURNS):
+                    for p in REMAT_POLICIES:
+                        set_remat_policy(tr.model, p)
+                        if turn == 0:   # a warm-up step, then the peak's
+                            step()
+                            torch.cuda.synchronize()
+                            held = torch.cuda.memory_allocated()
+                            torch.cuda.reset_peak_memory_stats()
+                            step()
+                            torch.cuda.synchronize()
+                            peak[str(p)] = dict(
+                                peak_gib=torch.cuda.max_memory_allocated()
+                                / 2**30, held_gib=held / 2**30)
+                        turns[str(p)].append(cuda_ms(step, 2, warmup=0))
+                set_remat_policy(tr.model, None)
+                res[f"batch{n}"] = dict(
+                    step_ms={k: statistics.median(v)
+                             for k, v in turns.items()},
+                    step_ms_all=turns, memory=peak)
+            del tr
+            torch.cuda.empty_cache()
+    launches = dict(_build.LAUNCHES)
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["remat_path"] = out
+    for name in remat_models():
+        res = out[name]
+        print(f"remat {name}: float32 steps bit for bit equal across "
+              f"{[str(p) for p in REMAT_POLICIES]} (recomputed convolutions "
+              f"{res['f32_recomputed_convs']}"
+              + (f"; also under a world-1 {res['nccl_backend']} group, "
+                 f"{res['nccl_cross_replica_bn_layers']} cross-replica BN "
+                 f"layers" if "nccl_backend" in res else "")
+              + f"); bf16 operators {res['bf16_ops']}, recomputed "
+              f"{res['bf16_recomputed_convs']}, largest relative gradient "
+              f"difference {res['bf16_grad_rel']}", flush=True)
+        for n in REMAT_BATCHES:
+            b = res[f"batch{n}"]
+            for p in REMAT_POLICIES:
+                m = b["memory"][str(p)]
+                print(f"remat {name} batch {n} x 256^2 remat_policy={p}: "
+                      f"step {b['step_ms'][str(p)]:.3f} ms (median of "
+                      f"{REMAT_TURNS} turns, bf16, forward + backward + "
+                      f"Ranger), peak {m['peak_gib']:.3f} GiB (held before "
+                      f"the step {m['held_gib']:.3f}), on {report['card']}",
+                      flush=True)
+    print(f"remat phase {out['phase_s']:.1f} s", flush=True)
+    return launches
+
+
 def tree_leaves(tree):
     """The numpy leaves of a nested dict of arrays, in key order."""
     if isinstance(tree, dict):
@@ -3894,6 +4191,7 @@ def main() -> int:
     train_launches = train_path(dev, report, args.train_quality)
     dp_launches = dp_path(dev, report, model)
     gui_launches = gui_path(dev, report, model)
+    remat_launches = remat_path(dev, report)
     report["total_s"] = time.perf_counter() - t0
     # launches: those of the full-width paths' own runs (crop, tiled frame,
     # int8 crop, int8 tiled frame, inference CLI, evaluation, labels), each
@@ -3902,7 +4200,7 @@ def main() -> int:
     driven = [crop_launches, big_launches, *int8_launches, cli_launches,
               serve_launches, store_launches, crop_gen_launches,
               eval_launches, label_launches, train_launches, dp_launches,
-              gui_launches]
+              gui_launches, remat_launches]
     launches = {k: sum(d[k] for d in driven) for k in _build.LAUNCHES}
     if launches["watershed_route"]:
         raise AssertionError("the watershed route ran on a main path")
@@ -3911,7 +4209,7 @@ def main() -> int:
     report["launches_by_path"] = dict(zip(
         ("crops", "frames", "int8_crops", "int8_frame", "cli", "serve",
          "store", "crop_generator", "eval", "labels", "train", "dp",
-         "gui"), driven))
+         "gui", "remat"), driven))
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[name],
                     side_run_launches=side[name],

@@ -11,13 +11,20 @@ path whose product runs through kernel K5 (``ops/kernels/matmul.py``,
 ``conv3x3_int8``).
 ``_MatmulUp`` is the 2x2 stride-2 transposed convolution as one matrix
 product, with ``nn.ConvTranspose2d``'s parameters.
+``ConvBlock(remat_policy=)`` recomputes the block's activations in the
+backward pass instead of keeping them (the JAX package's ``nn.remat`` of
+``ConvBlock``), with the same numbers and the same ``state_dict``.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from microbeseg_torch.ops.kernels.matmul import (conv3x3_int8, dequantize,
                                                  matmul_int8, tap_operand)
@@ -224,22 +231,94 @@ class QuantConv(nn.Conv2d):
             self._seen_amax = None
 
 
+# ConvBlock's rematerialisation policies: None keeps every activation;
+# 'dots' keeps what the convolutions return and recomputes the activations
+# and norms (jax.checkpoint_policies.dots_saveable, which keeps
+# conv_general_dilated and dot_general); 'nothing' keeps only the block's
+# input (nothing_saveable)
+REMAT_POLICIES = (None, "dots", "nothing")
+# the operator a convolution reaches below autograd, on the CPU and under
+# CUDA autocast alike (nn.Conv2d -> aten.conv2d -> aten.convolution)
+_CONV_OPS = frozenset({torch.ops.aten.convolution.default})
+
+
+def check_remat_policy(policy) -> None:
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"Unsupported remat_policy: {policy!r} (None, "
+                         f"'dots' or 'nothing')")
+
+
+def _save_convolutions(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _CONV_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _running_stats_kept(buffers, inner):
+    """Around a block's recomputation: its BatchNorm layers' running
+    statistics as they were before it, put back after it (also when the
+    recomputation stops early), so that a step updates them once, as flax's
+    ``nn.remat`` does.  The recomputation itself normalises with the batch
+    statistics, which are those of the first forward."""
+    with torch.no_grad():
+        kept = [b.clone() for b in buffers]
+    try:
+        with inner:
+            yield
+    finally:
+        with torch.no_grad():
+            for b, k in zip(buffers, kept):
+                b.copy_(k)
+
+
 class ConvBlock(nn.Module):
     """[conv3x3 -> act -> norm] x 2.  With ``quantize``, in eval mode, each
     convolution that ``_quantize_this`` picks for the tensor it is given
-    takes its int8 path; every other case is the plain ``nn.Conv2d``."""
+    takes its int8 path; every other case is the plain ``nn.Conv2d``.
+
+    ``remat_policy`` ('dots' | 'nothing', see ``REMAT_POLICIES``): in
+    training mode with grad enabled, the block runs under
+    ``torch.utils.checkpoint`` (non-reentrant, so autocast's state reaches
+    the recomputation) and its activations are recomputed in the backward
+    pass; the checkpointing lives in ``forward``, so the parameters keep
+    their names."""
 
     def __init__(self, ch_in: int, ch_out: int, act_fun: str = "relu",
-                 normalization: str = "bn", quantize: bool = False):
+                 normalization: str = "bn", quantize: bool = False,
+                 remat_policy=None):
         super().__init__()
+        check_remat_policy(remat_policy)
         self.quantize = quantize
+        self.remat_policy = remat_policy
         self.conv = nn.Sequential(
             QuantConv(ch_in, ch_out),
             make_act(act_fun), make_norm(normalization, ch_out),
             QuantConv(ch_out, ch_out),
             make_act(act_fun), make_norm(normalization, ch_out))
 
+    def _remat(self, x):
+        stats = [b for m in self.conv
+                 if isinstance(m, nn.BatchNorm2d) and m.track_running_stats
+                 for b in (m.running_mean, m.running_var,
+                           m.num_batches_tracked)]
+
+        def contexts():
+            if self.remat_policy == "dots":
+                first, again = create_selective_checkpoint_contexts(
+                    _save_convolutions)
+            else:
+                first = again = contextlib.nullcontext()
+            return first, (_running_stats_kept(stats, again) if stats
+                           else again)
+
+        # the block draws no random numbers: no RNG state to keep
+        return checkpoint(self.conv, x, use_reentrant=False,
+                          context_fn=contexts, preserve_rng_state=False)
+
     def forward(self, x):
+        if (self.remat_policy is not None and self.training
+                and torch.is_grad_enabled()):
+            return self._remat(x)
         if not self.quantize or self.training:
             return self.conv(x)
         for layer in self.conv:

@@ -25,6 +25,7 @@ from microbeseg_torch.models.blocks import (
     ConvBlock,
     ConvPool,
     TranspConvBlock,
+    check_remat_policy,
     max_pool_2x2,
 )
 
@@ -37,12 +38,12 @@ def _level_features(filters: Tuple[int, int]) -> List[int]:
 
 
 def _decoder(feats: List[int], ch_out: int, act_fun: str, normalization: str,
-             up_impl: str, quantize: bool
+             up_impl: str, quantize: bool, remat_policy
              ) -> Tuple[nn.ModuleList, nn.ModuleList]:
     ups = nn.ModuleList([TranspConvBlock(f, f // 2, normalization, up_impl)
                          for f in reversed(feats[1:])])
     convs = nn.ModuleList([ConvBlock(f, f // 2, act_fun, normalization,
-                                     quantize)
+                                     quantize, remat_policy)
                            for f in reversed(feats[1:])])
     convs.append(nn.Conv2d(feats[0], ch_out, 1))
     return ups, convs
@@ -55,19 +56,20 @@ class UNet(nn.Module):
                  pool_method: str = "conv", act_fun: str = "relu",
                  normalization: str = "bn",
                  filters: Tuple[int, int] = (64, 1024),
-                 up_impl: str = "conv", quantize: bool = False):
+                 up_impl: str = "conv", quantize: bool = False,
+                 remat_policy=None):
         super().__init__()
         feats = _level_features(filters)
         self.pool_method = pool_method
         self.encoderConv = nn.ModuleList(
             [ConvBlock(ch_in if i == 0 else feats[i - 1], f, act_fun,
-                       normalization, quantize)
+                       normalization, quantize, remat_policy)
              for i, f in enumerate(feats)])
         if pool_method == "conv":
             self.pooling = nn.ModuleList(
                 [ConvPool(f, act_fun, normalization) for f in feats[:-1]])
         self._init_decoders(feats, ch_out, act_fun, normalization, up_impl,
-                            quantize)
+                            quantize, remat_policy)
 
     def _init_decoders(self, feats, ch_out, *block_args):
         self.decoderUpconv, self.decoderConv = _decoder(feats, ch_out,
@@ -112,9 +114,10 @@ class DUNet(UNet):
                  pool_method: str = "conv", act_fun: str = "relu",
                  normalization: str = "bn",
                  filters: Tuple[int, int] = (64, 1024),
-                 up_impl: str = "conv", quantize: bool = False):
+                 up_impl: str = "conv", quantize: bool = False,
+                 remat_policy=None):
         super().__init__(ch_in, ch_out, pool_method, act_fun, normalization,
-                         filters, up_impl, quantize)
+                         filters, up_impl, quantize, remat_policy)
 
     def _init_decoders(self, feats, ch_out, *block_args):
         self.decoder1Upconv, self.decoder1Conv = _decoder(feats, ch_out,
@@ -139,16 +142,29 @@ def set_quantize(model: nn.Module, quantize: bool = True) -> nn.Module:
     return model
 
 
+def set_remat_policy(model: nn.Module, remat_policy=None) -> nn.Module:
+    """Set the rematerialisation policy of every ``ConvBlock`` of ``model``
+    (a model a trainer has built and wrapped already), in place."""
+    check_remat_policy(remat_policy)
+    for m in model.modules():
+        if isinstance(m, ConvBlock):
+            m.remat_policy = remat_policy
+    return model
+
+
 def build_unet(cfg: ModelConfig, up_impl: str = "conv",
-               quantize: bool = False) -> UNet:
+               quantize: bool = False, remat_policy=None) -> UNet:
     """Model factory: DUNet for unet_type 'DU', UNet for 'U'.
 
     ``up_impl``: 'conv' | 'matmul', the implementation of the 2x2 stride-2
     upsampling (same parameters; see ``blocks._MatmulUp``).  ``quantize``:
     int8 inference on the large-spatial 3x3 convolutions (same parameters,
-    eval mode only; see ``blocks.QuantConv``)."""
+    eval mode only; see ``blocks.QuantConv``).  ``remat_policy``: None |
+    'dots' | 'nothing', ConvBlock-level rematerialisation of every encoder
+    and decoder ``ConvBlock`` in training (same parameters and numbers; a
+    train-step memory / speed knob; see ``blocks.ConvBlock``)."""
     cls = DUNet if cfg.unet_type == "DU" else UNet
     return cls(ch_in=cfg.ch_in, ch_out=cfg.ch_out,
                pool_method=cfg.pool_method, act_fun=cfg.act_fun,
                normalization=cfg.normalization, filters=tuple(cfg.filters),
-               up_impl=up_impl, quantize=quantize)
+               up_impl=up_impl, quantize=quantize, remat_policy=remat_policy)

@@ -3,8 +3,9 @@ and its drainage approximation ('fast' method).
 
 ``watershed``: the image is quantised into ``n_levels`` flood levels and
 labels propagate level by level: within a level, unlabeled pixels take the
-label of their lowest-valued labeled 4-neighbour.  A final fixed-point
-sweep labels plateau leftovers.  ``watershed_fast``: every pixel drains to
+label of their lowest-valued labeled neighbour (4-connected, or 8-connected
+with ``connectivity=2``).  A final fixed-point sweep labels plateau
+leftovers.  ``watershed_fast``: every pixel drains to
 its lowest neighbour, pointer doubling finds each basin's root, markers
 label their basins, and the same fixed-point sweep fills the rest.  Same
 steps as ``microbeseg_tpu/ops/watershed.py::watershed`` and
@@ -12,6 +13,8 @@ steps as ``microbeseg_tpu/ops/watershed.py::watershed`` and
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -51,14 +54,32 @@ def _flood_step(labels, value, active, shifts):
     return torch.where(grow, best_l, labels)
 
 
+def _cleanup(labels, image, mask, shifts, max_iters):
+    """Flood steps over the whole mask until one changes nothing or
+    ``max_iters`` (default H * W, which bounds the geodesic distance) have
+    run."""
+    if max_iters is None:
+        max_iters = image.shape[-2] * image.shape[-1]
+    for _ in range(max_iters):
+        new = _flood_step(labels, image, mask, shifts)
+        if torch.equal(new, labels):
+            break
+        labels = new
+    return labels
+
+
 def watershed(image: torch.Tensor, markers: torch.Tensor, mask: torch.Tensor,
-              n_levels: int = 128, inner_steps: int = 2) -> torch.Tensor:
+              n_levels: int = 128, inner_steps: int = 2,
+              max_final_iters: Optional[int] = None, connectivity: int = 1
+              ) -> torch.Tensor:
     """Flood ``image`` (lower = flooded first) from ``markers`` within
     ``mask``.  (B, H, W) or (H, W) inputs; returns int32 labels.  Each image
-    is quantised with its own min and max."""
+    is quantised with its own min and max.  ``connectivity``: 1 for 4- and
+    2 for 8-connected steps; ``max_final_iters`` bounds the cleanup."""
     squeeze = image.ndim == 2
     if squeeze:
         image, markers, mask = image[None], markers[None], mask[None]
+    shifts = _SHIFTS_4 if connectivity == 1 else _SHIFTS_8
     mask = mask.to(torch.bool)
     image = image.to(torch.float32)
     labels = torch.where(mask, markers.to(torch.int32), 0)
@@ -67,19 +88,14 @@ def watershed(image: torch.Tensor, markers: torch.Tensor, mask: torch.Tensor,
     for lvl in range(n_levels):
         active = mask & (q <= lvl)
         for _ in range(inner_steps):
-            labels = _flood_step(labels, image, active, _SHIFTS_4)
-
-    # H * W steps bound the geodesic distance; stops at the fixed point
-    for _ in range(image.shape[-2] * image.shape[-1]):
-        new = _flood_step(labels, image, mask, _SHIFTS_4)
-        if torch.equal(new, labels):
-            break
-        labels = new
+            labels = _flood_step(labels, image, active, shifts)
+    labels = _cleanup(labels, image, mask, shifts, max_final_iters)
     return labels[0] if squeeze else labels
 
 
 def watershed_fast(image: torch.Tensor, markers: torch.Tensor,
-                   mask: torch.Tensor, connectivity: int = 1) -> torch.Tensor:
+                   mask: torch.Tensor, connectivity: int = 1,
+                   max_cleanup_iters: Optional[int] = None) -> torch.Tensor:
     """Drainage approximation of the marker watershed.  (B, H, W) or
     (H, W) inputs; returns int32 labels.
 
@@ -124,11 +140,6 @@ def watershed_fast(image: torch.Tensor, markers: torch.Tensor,
     labels = torch.gather(labels0, 1, parent).view(B, H, W)
     labels = torch.where(mask, labels, 0)
 
-    # cleanup: pixels that drain to unlabelled minima, by the ordered flood;
-    # H * W steps bound the geodesic distance; stops at the fixed point
-    for _ in range(H * W):
-        new = _flood_step(labels, image, mask, shifts)
-        if torch.equal(new, labels):
-            break
-        labels = new
+    # cleanup: pixels that drain to unlabelled minima, by the ordered flood
+    labels = _cleanup(labels, image, mask, shifts, max_cleanup_iters)
     return labels[0] if squeeze else labels

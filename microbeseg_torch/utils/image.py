@@ -1,14 +1,21 @@
-"""Host-side image utilities: min/max normalization, bucket padding, the
-border correction of masks before scoring, and numbered file names."""
+"""Host-side image utilities: instance ids, min/max normalization, bucket
+padding, the border correction of masks before scoring, and numbered file
+names."""
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from microbeseg_torch.config import PAD_BUCKETS
+
+
+def get_nucleus_ids(img: np.ndarray) -> np.ndarray:
+    """Instance ids (> 0) present in an intensity-coded label image."""
+    values = np.unique(img)
+    return values[values > 0]
 
 
 def min_max_normalization(img: np.ndarray,
@@ -42,6 +49,19 @@ def pad_bucket_shape(h: int, w: int) -> Tuple[int, int]:
                 f"side {s} exceeds the largest pad bucket {PAD_BUCKETS[-1]}; "
                 "use tiled inference (InferConfig.use_tiling=True)")
     return out[0], out[1]
+
+
+def zero_pad_model_input(img: np.ndarray, pad_val: float = 0
+                         ) -> Tuple[np.ndarray, List[int]]:
+    """Pad up and left to the next bucket shape; returns (padded, [pad_y,
+    pad_x]).  The image sits at the bottom right of the padded frame and
+    comes back as ``padded[..., pad_y:, pad_x:]``.  A (T, H, W) stack pads
+    H and W and returns the pads in the same order."""
+    th, tw = pad_bucket_shape(img.shape[-2], img.shape[-1])
+    pads = [th - img.shape[-2], tw - img.shape[-1]]
+    widths = [(0, 0)] * (img.ndim - 2) + [(pads[0], 0), (pads[1], 0)]
+    padded = np.pad(img, widths, mode="constant", constant_values=pad_val)
+    return padded, pads
 
 
 def border_correction(mask: np.ndarray, border_width: int = 10) -> np.ndarray:
