@@ -317,6 +317,31 @@ def host_and_device(fn, reps: int = 50) -> dict:
     return dict(host_ms=host_ms, device_us=device_us)
 
 
+def step_host_and_device_ms(fn, enqueues: int = 10, profiled: int = 5):
+    """Where one training step's time goes: the host's time to enqueue it
+    (median of ``enqueues`` calls, the queue drained before each) and the
+    device time of its kernels (``torch.profiler``, mean of ``profiled``
+    calls), both in ms.  A step whose event time equals its enqueue time
+    is bound by the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    enq = []
+    for _ in range(enqueues):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        enq.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            fn()
+        torch.cuda.synchronize()
+    device = sum(ev.device_time_total for ev in prof.key_averages()
+                 if ev.device_time_total > 0 and not ev.key.startswith(
+                     ("aten::", "Activity Buffer"))) / profiled / 1e3
+    return statistics.median(enq), device
+
+
 def stream_handle_us(dev, reps: int = 20000) -> dict:
     """Host microseconds to fetch the current stream's handle for a launch:
     the raw call that ``_build.stream_ptr`` makes, beside the public route
@@ -3476,8 +3501,6 @@ def dp_training(dev, tmp):
     - the DDP step (world 1, NCCL) and the plain step in bf16, in turns:
       forward + backward + optimizer, device ms (CUDA events), the host's
       enqueue ms and the device time of the kernels (``torch.profiler``)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from microbeseg_torch.config import ModelConfig, TrainConfig
     from microbeseg_torch.models.blocks import CrossReplicaBatchNorm2d
     from microbeseg_torch.models.unet import build_unet
@@ -3586,22 +3609,7 @@ def dp_training(dev, tmp):
                 times[k].append(cuda_ms(fn, 5, warmup=1))
         host, device = {}, {}
         for k, fn in variants.items():
-            enq = []
-            for _ in range(10):
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                fn()
-                enq.append((time.perf_counter() - t1) * 1e3)
-            host[k] = statistics.median(enq)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    fn()
-                torch.cuda.synchronize()
-            device[k] = sum(ev.device_time_total for ev in prof.key_averages()
-                            if ev.device_time_total > 0 and not ev.key
-                            .startswith(("aten::", "Activity Buffer"))
-                            ) / 5 / 1e3
+            host[k], device[k] = step_host_and_device_ms(fn)
         del ddp_tr
     finally:
         mesh.destroy_process_group()
@@ -3745,16 +3753,27 @@ def remat_models():
             "relu_bn": ModelConfig()}
 
 
-def remat_steps(tr, state, batch, policies=REMAT_POLICIES, ops=None):
-    """One ``forward_backward`` of ``batch`` from ``state`` for each policy
-    (``set_remat_policy`` on the trainer's model): {policy: (outputs,
-    gradients, buffers, the convolutions that ran)}.  ``ops``: a set that
-    collects the names of the operators with 'conv' in them that the
-    dispatcher presents, and the dtypes of the convolutions' inputs."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    from microbeseg_torch.models.unet import set_remat_policy
+def remat_trainer(cfg, path, dev, state, policy):
+    """A ``Trainer`` whose model is built with ``remat_policy=policy``,
+    loaded with ``state``, and its optimizer."""
     from microbeseg_torch.training.optimizers import build_optimizer
+    from microbeseg_torch.training.trainer import Trainer
+
+    with torch.device(dev):   # the parameters made on the card: no
+        # initialisation on the host, which ``state`` overwrites anyway
+        tr = Trainer(cfg, path, device=dev, remat_policy=policy)
+    tr.model.load_state_dict(state)
+    tr.optimizer = build_optimizer(cfg, tr.model)[0]
+    return tr
+
+
+def remat_steps(make, batch, policies=REMAT_POLICIES, ops=None):
+    """One ``forward_backward`` of ``batch`` for each policy, on the
+    trainer ``make(policy)`` returns: {policy: (outputs, gradients,
+    buffers, the convolutions that ran)}.  ``ops``: a set that collects
+    the names of the operators with 'conv' in them that the dispatcher
+    presents, and the dtypes of the convolutions' inputs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
 
     class Convolutions(TorchDispatchMode):
         def __init__(self):
@@ -3773,22 +3792,17 @@ def remat_steps(tr, state, batch, policies=REMAT_POLICIES, ops=None):
     images, labels, weights = batch
     out = {}
     for policy in policies:
-        set_remat_policy(tr.model, policy)
-        tr.model.load_state_dict(state)
-        tr.optimizer = build_optimizer(tr.cfg, tr.model)[0]
+        tr = make(policy)
         preds = []
-        hook = tr.model.register_forward_hook(
+        tr.model.register_forward_hook(
             lambda m, i, o: preds.append([t.detach().clone() for t in o]))
-        try:
-            with Convolutions() as convs:
-                tr.forward_backward(images, labels, weights)
-        finally:
-            hook.remove()
+        with Convolutions() as convs:
+            tr.forward_backward(images, labels, weights)
         out[policy] = (preds[0], {n: p.grad.detach().clone() for n, p in
                                   tr.model.named_parameters()},
                        {n: b.detach().clone() for n, b in
                         tr.model.named_buffers()}, convs.n)
-    set_remat_policy(tr.model, None)
+        del tr
     return out
 
 
@@ -3826,7 +3840,8 @@ def remat_path(dev, report):
     """Phase 17: ConvBlock-level rematerialisation (``remat_policy`` None,
     'dots', 'nothing') on the flagship at full width and depth, built as
     ``run_training`` builds it (mish, gn) and as ``ModelConfig()`` builds
-    it (relu, bn), through ``Trainer.forward_backward`` and Ranger:
+    it (relu, bn), by ``Trainer(remat_policy=)``, through
+    ``Trainer.forward_backward`` and Ranger:
 
     - float32, TF32 off, cuDNN deterministic: one step (batch 4 of 256^2)
       of each policy equals the plain step bit for bit (outputs, gradients,
@@ -3840,21 +3855,23 @@ def remat_path(dev, report):
       again 0 and 2 a ConvBlock recomputed, and the largest relative
       gradient difference from the plain step beside that of two plain
       steps;
-    - timed: a bf16 step (forward + backward + Ranger) at batch 4 and 16
-      of 256^2, the three policies in turns (median of CUDA-event times),
-      and in the first turn the peak memory of one step of each
-      (``max_memory_allocated`` after ``reset_peak_memory_stats``) beside
-      what was allocated before it."""
+    - a bf16 step (forward + backward + Ranger) at batch 4 and 16 of
+      256^2: the peak memory of one step of each policy, its trainer alone
+      on the card (``max_memory_allocated`` after
+      ``reset_peak_memory_stats``), beside what was allocated before it;
+      the three policies' steps in turns (median of CUDA-event times);
+      then each policy's host enqueue ms against its kernels' device ms
+      (``step_host_and_device_ms``)."""
+    import gc
     import tempfile
 
     from microbeseg_torch.config import TrainConfig
     from microbeseg_torch.kernels import _build
     from microbeseg_torch.models.blocks import ConvBlock
-    from microbeseg_torch.models.unet import set_remat_policy
+    from microbeseg_torch.models.unet import build_unet
     from microbeseg_torch.ops.augment import apply_params
     from microbeseg_torch.parallel import mesh
-    from microbeseg_torch.training.optimizers import build_optimizer
-    from microbeseg_torch.training.trainer import Trainer, init_like_flax
+    from microbeseg_torch.training.trainer import init_like_flax
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3881,17 +3898,17 @@ def remat_path(dev, report):
             # float32: bit for bit, deterministic cuDNN
             f32 = TrainConfig(model=mcfg, compute_dtype="float32",
                               run_name="remat_f32")
-            tr = Trainer(f32, tmp / f"{name}_f32", device=dev)
-            n_blocks = sum(isinstance(m, ConvBlock)
-                           for m in tr.model.modules())
-            state = {k: v.clone() for k, v in
-                     init_like_flax(tr.model, 0).state_dict().items()}
+            model = init_like_flax(build_unet(mcfg), 0)
+            n_blocks = sum(isinstance(m, ConvBlock) for m in model.modules())
+            state = {k: v.to(dev) for k, v in model.state_dict().items()}
+            del model
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cudnn.deterministic = True
             torch.backends.cudnn.benchmark = False
             try:
-                steps = remat_steps(tr, state, batches[4])
+                steps = remat_steps(lambda p: remat_trainer(
+                    f32, tmp / f"{name}_f32", dev, state, p), batches[4])
                 remat_bit_equal(steps, f"{name} float32")
                 groups = []
                 if name == "relu_bn":   # the cross-replica BatchNorm
@@ -3899,19 +3916,24 @@ def remat_path(dev, report):
                     mesh.init_process_group(
                         0, 1, mesh.file_init_method(tmp / "nccl"), dev)
                     try:
-                        ddp = Trainer(f32, tmp / "ddp", device=dev)
-                        groups = [type(m).__name__ for m in
-                                  ddp.model.modules()
-                                  if isinstance(m, torch.nn.BatchNorm2d)]
-                        if set(groups) != {"CrossReplicaBatchNorm2d"}:
+                        def make_ddp(p):
+                            tr = remat_trainer(f32, tmp / "ddp", dev, state,
+                                               p)
+                            groups.append([
+                                type(m).__name__ for m in tr.model.modules()
+                                if isinstance(m, torch.nn.BatchNorm2d)])
+                            return tr
+
+                        dsteps = remat_steps(make_ddp, batches[4])
+                        if {k for g in groups for k in g} != {
+                                "CrossReplicaBatchNorm2d"}:
                             raise AssertionError(f"remat under NCCL: {groups}")
-                        dsteps = remat_steps(ddp, state, batches[4])
                         remat_bit_equal(dsteps, "relu_bn float32 NCCL")
                         res["nccl_backend"] = torch.distributed.get_backend()
-                        del ddp, dsteps
+                        del dsteps
                     finally:
                         mesh.destroy_process_group()
-                    res["nccl_cross_replica_bn_layers"] = len(groups)
+                    res["nccl_cross_replica_bn_layers"] = len(groups[0])
             finally:
                 (torch.backends.cuda.matmul.allow_tf32,
                  torch.backends.cudnn.allow_tf32,
@@ -3924,15 +3946,19 @@ def remat_path(dev, report):
                     "None": 0, "dots": 0, "nothing": 2 * n_blocks}:
                 raise AssertionError(f"remat {name}: recomputed convolutions "
                                      f"{res['f32_recomputed_convs']}")
-            del tr, steps
+            del steps
 
             # bf16 (the path's): operators, autocast in the recomputation,
             # gradients against two plain steps
             bf16 = TrainConfig(model=mcfg, run_name="remat_bf16")
-            tr = Trainer(bf16, tmp / f"{name}_bf16", device=dev)
+
+            def make(p):
+                return remat_trainer(bf16, tmp / f"{name}_bf16", dev, state,
+                                     p)
+
             ops = set()
-            steps = remat_steps(tr, state, batches[4], ops=ops)
-            again = remat_steps(tr, state, batches[4], policies=(None,))
+            steps = remat_steps(make, batches[4], ops=ops)
+            again = remat_steps(make, batches[4], policies=(None,))
             conv_ops = sorted(o for o in ops if o.startswith("aten."))
             if set(conv_ops) != {"aten.convolution.default",
                                  "aten.convolution_backward.default"} or (
@@ -3952,40 +3978,50 @@ def remat_path(dev, report):
                    for p in ("dots", "nothing")}}
             del steps, again
 
-            # timed, bf16: the policies in turns; in the first, one step's
-            # peak memory
             for n in REMAT_BATCHES:
                 images, labels, weights = batches[n]
-                tr.model.load_state_dict(state)
-                tr.optimizer = build_optimizer(bf16, tr.model)[0]
 
-                def step():
-                    tr.forward_backward(images, labels, weights)
-                    tr.optimizer.step()
+                def stepper(tr):
+                    def step():
+                        tr.forward_backward(images, labels, weights)
+                        tr.optimizer.step()
+                    return step
 
-                turns = {str(p): [] for p in REMAT_POLICIES}
+                # peak memory: one policy's trainer alone, a warm-up step,
+                # then the measured one
                 peak = {}
-                for turn in range(REMAT_TURNS):
-                    for p in REMAT_POLICIES:
-                        set_remat_policy(tr.model, p)
-                        if turn == 0:   # a warm-up step, then the peak's
-                            step()
-                            torch.cuda.synchronize()
-                            held = torch.cuda.memory_allocated()
-                            torch.cuda.reset_peak_memory_stats()
-                            step()
-                            torch.cuda.synchronize()
-                            peak[str(p)] = dict(
-                                peak_gib=torch.cuda.max_memory_allocated()
-                                / 2**30, held_gib=held / 2**30)
-                        turns[str(p)].append(cuda_ms(step, 2, warmup=0))
-                set_remat_policy(tr.model, None)
+                for p in REMAT_POLICIES:
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    step = stepper(make(p))
+                    step()
+                    torch.cuda.synchronize()
+                    held = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    step()
+                    torch.cuda.synchronize()
+                    peak[str(p)] = dict(
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                        held_gib=held / 2**30)
+                    del step
+                torch.cuda.empty_cache()
+                # time: the three policies' trainers in turns, then each
+                # step's host enqueue against its kernels' device time
+                steps = {str(p): stepper(make(p)) for p in REMAT_POLICIES}
+                turns = {k: [] for k in steps}
+                for _ in range(REMAT_TURNS):
+                    for k, step in steps.items():
+                        turns[k].append(cuda_ms(step, 2, warmup=1))
+                split = {}
+                for k, step in steps.items():
+                    host, device = step_host_and_device_ms(step, 5, 3)
+                    split[k] = dict(host_enqueue_ms=host, device_ms=device)
                 res[f"batch{n}"] = dict(
                     step_ms={k: statistics.median(v)
                              for k, v in turns.items()},
-                    step_ms_all=turns, memory=peak)
-            del tr
-            torch.cuda.empty_cache()
+                    step_ms_all=turns, memory=peak, host_device=split)
+                del steps
+                torch.cuda.empty_cache()
     launches = dict(_build.LAUNCHES)
     out["phase_s"] = time.perf_counter() - t_phase
     report["remat_path"] = out
@@ -4004,11 +4040,14 @@ def remat_path(dev, report):
             b = res[f"batch{n}"]
             for p in REMAT_POLICIES:
                 m = b["memory"][str(p)]
+                hd = b["host_device"][str(p)]
                 print(f"remat {name} batch {n} x 256^2 remat_policy={p}: "
                       f"step {b['step_ms'][str(p)]:.3f} ms (median of "
                       f"{REMAT_TURNS} turns, bf16, forward + backward + "
-                      f"Ranger), peak {m['peak_gib']:.3f} GiB (held before "
-                      f"the step {m['held_gib']:.3f}), on {report['card']}",
+                      f"Ranger; host enqueue {hd['host_enqueue_ms']:.3f} ms, "
+                      f"kernels' device time {hd['device_ms']:.3f} ms), peak "
+                      f"{m['peak_gib']:.3f} GiB (held before the step "
+                      f"{m['held_gib']:.3f}), on {report['card']}",
                       flush=True)
     print(f"remat phase {out['phase_s']:.1f} s", flush=True)
     return launches

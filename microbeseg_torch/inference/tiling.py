@@ -68,9 +68,16 @@ def stitch_predictions(tiles: np.ndarray, pos: Sequence[Tuple[int, int]],
     return (acc / np.maximum(wacc, 1e-12)).astype(np.float32)
 
 
-def _stitch(tiles, pos, out_shape, weight) -> torch.Tensor:
+def stitch_tiles_device(tiles: torch.Tensor,
+                        pos: Sequence[Tuple[int, int]],
+                        out_shape: Tuple[int, int]) -> torch.Tensor:
+    """Stitch a (B, n_tiles, tile, tile) batch into (B, H, W) float32 on
+    the tiles' device: each tile is weighted and added into its rectangle
+    of the output, tile by tile in order, and the sum is divided by the
+    accumulated weights (the same field for every image of the batch)."""
     H, W = out_shape
     B, _, tile, _ = tiles.shape
+    weight = torch.from_numpy(_feather_weight(tile)).to(tiles.device)
     acc = torch.zeros((B, H, W), dtype=torch.float32, device=tiles.device)
     wacc = torch.zeros((H, W), dtype=torch.float32, device=tiles.device)
     for i, (y, x) in enumerate(pos):
@@ -79,35 +86,13 @@ def _stitch(tiles, pos, out_shape, weight) -> torch.Tensor:
     return acc / torch.clamp(wacc, min=1e-12)
 
 
-def stitch_tiles_device(tiles: torch.Tensor,
-                        pos: Sequence[Tuple[int, int]],
-                        out_shape: Tuple[int, int],
-                        max_bytes: int = 1 << 29) -> torch.Tensor:
-    """Stitch a (B, n_tiles, tile, tile) batch into (B, H, W) float32 on
-    the tiles' device: each tile is weighted and added into its rectangle
-    of the output, tile by tile in order, and the sum is divided by the
-    accumulated weights (the same field for every image of the batch).
-    The batch goes in chunks whose accumulators and weighted tiles stay
-    under ``max_bytes`` (H * W * 4 + n_tiles * tile^2 * 4 bytes an image,
-    the JAX package's estimate); at least one image a chunk."""
-    H, W = out_shape
-    B, n, tile, _ = tiles.shape
-    weight = torch.from_numpy(_feather_weight(tile)).to(tiles.device)
-    chunk = max(1, min(B, max_bytes // (H * W * 4 + n * tile * tile * 4)))
-    if chunk >= B:
-        return _stitch(tiles, pos, out_shape, weight)
-    return torch.cat([_stitch(tiles[s:s + chunk], pos, out_shape, weight)
-                      for s in range(0, B, chunk)])
-
-
 def stitch_predictions_batch(tiles: np.ndarray,
                              pos: Sequence[Tuple[int, int]],
                              out_shape: Tuple[int, int],
-                             max_bytes: int = 1 << 29,
                              device=None) -> np.ndarray:
     """Host-array wrapper around ``stitch_tiles_device``; runs on the CUDA
     card unless ``device`` says otherwise."""
     from microbeseg_torch.utils.device import resolve_device
     dev = resolve_device(device)
     return stitch_tiles_device(torch.as_tensor(tiles, device=dev), pos,
-                               out_shape, max_bytes).cpu().numpy()
+                               out_shape).cpu().numpy()

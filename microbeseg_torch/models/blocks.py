@@ -237,19 +237,14 @@ class QuantConv(nn.Conv2d):
 # conv_general_dilated and dot_general); 'nothing' keeps only the block's
 # input (nothing_saveable)
 REMAT_POLICIES = (None, "dots", "nothing")
-# the operator a convolution reaches below autograd, on the CPU and under
-# CUDA autocast alike (nn.Conv2d -> aten.conv2d -> aten.convolution)
-_CONV_OPS = frozenset({torch.ops.aten.convolution.default})
-
-
-def check_remat_policy(policy) -> None:
-    if policy not in REMAT_POLICIES:
-        raise ValueError(f"Unsupported remat_policy: {policy!r} (None, "
-                         f"'dots' or 'nothing')")
 
 
 def _save_convolutions(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op in _CONV_OPS
+    # aten.convolution is the operator a convolution reaches below
+    # autograd, on the CPU and under CUDA autocast alike (nn.Conv2d ->
+    # aten.conv2d -> aten.convolution)
+    return (CheckpointPolicy.MUST_SAVE
+            if op is torch.ops.aten.convolution.default
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
@@ -287,7 +282,9 @@ class ConvBlock(nn.Module):
                  normalization: str = "bn", quantize: bool = False,
                  remat_policy=None):
         super().__init__()
-        check_remat_policy(remat_policy)
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"Unsupported remat_policy: {remat_policy!r} "
+                             f"(None, 'dots' or 'nothing')")
         self.quantize = quantize
         self.remat_policy = remat_policy
         self.conv = nn.Sequential(

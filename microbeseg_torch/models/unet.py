@@ -25,7 +25,6 @@ from microbeseg_torch.models.blocks import (
     ConvBlock,
     ConvPool,
     TranspConvBlock,
-    check_remat_policy,
     max_pool_2x2,
 )
 
@@ -139,16 +138,6 @@ def set_quantize(model: nn.Module, quantize: bool = True) -> nn.Module:
     for m in model.modules():
         if isinstance(m, ConvBlock):
             m.quantize = quantize
-    return model
-
-
-def set_remat_policy(model: nn.Module, remat_policy=None) -> nn.Module:
-    """Set the rematerialisation policy of every ``ConvBlock`` of ``model``
-    (a model a trainer has built and wrapped already), in place."""
-    check_remat_policy(remat_policy)
-    for m in model.modules():
-        if isinstance(m, ConvBlock):
-            m.remat_policy = remat_policy
     return model
 
 

@@ -14,8 +14,6 @@ steps as ``microbeseg_tpu/ops/watershed.py::watershed`` and
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.nn.functional as F
 
@@ -54,13 +52,10 @@ def _flood_step(labels, value, active, shifts):
     return torch.where(grow, best_l, labels)
 
 
-def _cleanup(labels, image, mask, shifts, max_iters):
-    """Flood steps over the whole mask until one changes nothing or
-    ``max_iters`` (default H * W, which bounds the geodesic distance) have
-    run."""
-    if max_iters is None:
-        max_iters = image.shape[-2] * image.shape[-1]
-    for _ in range(max_iters):
+def _cleanup(labels, image, mask, shifts):
+    """Flood steps over the whole mask until one changes nothing; H * W
+    steps bound the geodesic distance."""
+    for _ in range(image.shape[-2] * image.shape[-1]):
         new = _flood_step(labels, image, mask, shifts)
         if torch.equal(new, labels):
             break
@@ -69,13 +64,14 @@ def _cleanup(labels, image, mask, shifts, max_iters):
 
 
 def watershed(image: torch.Tensor, markers: torch.Tensor, mask: torch.Tensor,
-              n_levels: int = 128, inner_steps: int = 2,
-              max_final_iters: Optional[int] = None, connectivity: int = 1
-              ) -> torch.Tensor:
+              n_levels: int = 128, inner_steps: int = 2, *,
+              connectivity: int = 1) -> torch.Tensor:
     """Flood ``image`` (lower = flooded first) from ``markers`` within
     ``mask``.  (B, H, W) or (H, W) inputs; returns int32 labels.  Each image
     is quantised with its own min and max.  ``connectivity``: 1 for 4- and
-    2 for 8-connected steps; ``max_final_iters`` bounds the cleanup."""
+    2 for 8-connected steps (keyword only: the JAX function's next
+    positional argument bounds its cleanup loop, which here stops at its
+    fixed point)."""
     squeeze = image.ndim == 2
     if squeeze:
         image, markers, mask = image[None], markers[None], mask[None]
@@ -89,13 +85,12 @@ def watershed(image: torch.Tensor, markers: torch.Tensor, mask: torch.Tensor,
         active = mask & (q <= lvl)
         for _ in range(inner_steps):
             labels = _flood_step(labels, image, active, shifts)
-    labels = _cleanup(labels, image, mask, shifts, max_final_iters)
+    labels = _cleanup(labels, image, mask, shifts)
     return labels[0] if squeeze else labels
 
 
 def watershed_fast(image: torch.Tensor, markers: torch.Tensor,
-                   mask: torch.Tensor, connectivity: int = 1,
-                   max_cleanup_iters: Optional[int] = None) -> torch.Tensor:
+                   mask: torch.Tensor, connectivity: int = 1) -> torch.Tensor:
     """Drainage approximation of the marker watershed.  (B, H, W) or
     (H, W) inputs; returns int32 labels.
 
@@ -141,5 +136,5 @@ def watershed_fast(image: torch.Tensor, markers: torch.Tensor,
     labels = torch.where(mask, labels, 0)
 
     # cleanup: pixels that drain to unlabelled minima, by the ordered flood
-    labels = _cleanup(labels, image, mask, shifts, max_cleanup_iters)
+    labels = _cleanup(labels, image, mask, shifts)
     return labels[0] if squeeze else labels

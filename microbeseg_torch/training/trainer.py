@@ -112,7 +112,8 @@ def init_like_flax(model: nn.Module, seed: int) -> nn.Module:
 class Trainer:
     """Headless trainer; callbacks replace the reference's Qt signals.
     Runs on the CUDA card unless ``device`` says otherwise.  Built inside a
-    process group, it is one rank of a data-parallel run on ``device``."""
+    process group, it is one rank of a data-parallel run on ``device``.
+    ``remat_policy`` goes to ``build_unet`` (None | 'dots' | 'nothing')."""
 
     _DEVICE_CACHE_MAX_BYTES = 4 << 30   # larger training sets stay on the host
     _FLUSH_SECS = 120.0                 # max staleness of the best checkpoint
@@ -121,7 +122,7 @@ class Trainer:
                  text_output: Callable[[str], None] = _noop,
                  progress: Callable[[int], None] = _noop,
                  should_stop: Callable[[], bool] = lambda: False,
-                 device=None):
+                 device=None, remat_policy=None):
         self.cfg = cfg
         self.path_models = Path(path_models)
         self.path_models.mkdir(parents=True, exist_ok=True)
@@ -129,7 +130,7 @@ class Trainer:
         self.progress = progress
         self.should_stop = should_stop
         self.device = resolve_device(device)
-        self.model = build_unet(cfg.model).to(
+        self.model = build_unet(cfg.model, remat_policy=remat_policy).to(
             self.device, memory_format=torch.channels_last)
         self.rank, self.world = rank(), world_size()
         self.distributed = is_distributed()

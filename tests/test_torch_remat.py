@@ -32,10 +32,10 @@ from microbeseg_torch.models import blocks
 from microbeseg_torch.models.convert import (state_dict_from_variables,
                                              variables_from_state_dict)
 from microbeseg_torch.models.io import save_checkpoint
-from microbeseg_torch.models.unet import build_unet, set_remat_policy
+from microbeseg_torch.models.unet import build_unet
 from microbeseg_torch.ops.augment import draw_params
 from microbeseg_torch.parallel import mesh
-from microbeseg_torch.training.trainer import init_like_flax
+from microbeseg_torch.training.trainer import Trainer, init_like_flax
 from tests import torch_dp_workers as W
 from tests.test_torch_models import random_variables
 
@@ -253,11 +253,12 @@ def test_eval_no_grad_and_quantize_take_the_plain_forward(monkeypatch):
 
 @pytest.mark.parametrize("policy", ["everything", "nothing_saveable", True,
                                     jax.checkpoint_policies.dots_saveable])
-def test_unknown_policy_is_refused(policy):
+def test_unknown_policy_is_refused(policy, tmp_path):
     with pytest.raises(ValueError, match="remat_policy"):
         build_unet(_cfg("gn"), remat_policy=policy)
     with pytest.raises(ValueError, match="remat_policy"):
-        set_remat_policy(build_unet(_cfg("gn")), policy)
+        Trainer(TrainConfig(model=_cfg("gn")), tmp_path, device="cpu",
+                remat_policy=policy)
 
 
 def test_two_gloo_ranks_with_remat_match_without(tmp_path):

@@ -72,38 +72,6 @@ def test_stitching_matches_jax_and_numpy_reference(shape, tile, overlap):
     np.testing.assert_array_equal(wrapped, ours)
 
 
-@pytest.mark.parametrize("n_chunks", [2, 3])
-def test_chunked_stitching_is_bit_equal(n_chunks):
-    """A ``max_bytes`` that fits 3 (then 2) of 5 frames' accumulators and
-    weighted tiles cuts the batch into 2 (then 3) chunks: the stitched
-    frames equal the port's in one chunk and JAX's, chunked the same way,
-    bit for bit."""
-    rng = np.random.default_rng(4)
-    shape = (96, 130)
-    frames = rng.standard_normal((5,) + shape).astype(np.float32)
-    tiles, pos = zip(*(tt.extract_tiles(f, 64, 16) for f in frames))
-    batch = np.stack(tiles)
-    per_frame = shape[0] * shape[1] * 4 + batch[0].nbytes
-    max_bytes = per_frame * -(-5 // n_chunks)
-    calls = []
-    stitch = tt._stitch
-
-    def counted(t, *args):
-        calls.append(t.shape[0])
-        return stitch(t, *args)
-
-    whole = tt.stitch_tiles_device(torch.from_numpy(batch), pos[0], shape)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tt, "_stitch", counted)
-        chunked = tt.stitch_predictions_batch(batch, pos[0], shape,
-                                              max_bytes, device="cpu")
-    assert sum(calls) == 5 and len(calls) == n_chunks
-    np.testing.assert_array_equal(chunked, whole.numpy())
-    for mb in (max_bytes, 1 << 29):
-        np.testing.assert_array_equal(chunked, jt.stitch_predictions_batch(
-            batch, pos[0], shape, max_bytes=mb))
-
-
 @pytest.mark.parametrize("src,dst,method", [
     ((64, 64), (32, 32), "cubic"), ((50, 50), (23, 23), "cubic"),
     ((64, 50), (32, 23), "cubic"), ((32, 23), (64, 50), "linear"),

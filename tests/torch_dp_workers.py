@@ -13,7 +13,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from microbeseg_torch.models.unet import set_remat_policy
 from microbeseg_torch.ops.augment import apply_params, take_params
 from microbeseg_torch.parallel import mesh
 from microbeseg_torch.training.optimizers import build_optimizer
@@ -78,16 +77,16 @@ def grad_rank(rank, world, init_method, out, cases, train=None):
 
 def remat_rank(rank, world, init_method, out, cases):
     """One rank of ``grad_step`` for each case, {name: (cfg, remat_policy,
-    images, labels, weights, state, params)}: the trainer's ConvBlocks take
-    the policy after the trainer has wrapped its model in DDP.  Saves each
+    images, labels, weights, state, params)}: the trainer builds its model
+    with the policy and wraps it in DDP.  Saves each
     step with the BatchNorm layers' ``num_batches_tracked`` and the names
     of their classes."""
     _join(rank, world, init_method)
     try:
         results = {}
         for name, (cfg, policy, *args) in cases.items():
-            trainer = Trainer(cfg, Path(out) / "models", device="cpu")
-            set_remat_policy(trainer.model, policy)
+            trainer = Trainer(cfg, Path(out) / "models", device="cpu",
+                              remat_policy=policy)
             step = grad_step(trainer, *args, cfg.label_type)
             tracked = {n: int(b) for n, b in trainer.model.named_buffers()
                        if n.endswith("num_batches_tracked")}
