@@ -62,6 +62,7 @@ from microbeseg_torch.parallel.mesh import (Mesh, batch_sharding,
                                             replicated_sharding)
 from microbeseg_torch.utils.device import resolve_device
 from microbeseg_torch.utils.image import pad_bucket_shape
+from microbeseg_torch.utils.profiling import span
 
 # numpy dtypes that upload as they are; anything else goes up as float32
 _UPLOAD_DTYPES = frozenset(("uint8", "int16", "int32", "float32"))
@@ -407,15 +408,17 @@ class InferenceEngine:
                             device=self.device),)
 
     def _upload(self, frames: np.ndarray) -> torch.Tensor:
-        frames = np.ascontiguousarray(frames)
-        if frames.dtype == np.uint16:
-            # uploads at 2 bytes a pixel; torch has little uint16 arithmetic,
-            # so the bits go up as int16 and widen on the device
-            x = torch.tensor(frames.view(np.int16), device=self.device)
-            return x.to(torch.int32).bitwise_and(0xFFFF)
-        if str(frames.dtype) not in _UPLOAD_DTYPES:
-            frames = frames.astype(np.float32)
-        return torch.tensor(frames, device=self.device)
+        with span("mseg.segment.upload"):
+            frames = np.ascontiguousarray(frames)
+            if frames.dtype == np.uint16:
+                # uploads at 2 bytes a pixel; torch has little uint16
+                # arithmetic, so the bits go up as int16 and widen on the
+                # device
+                x = torch.tensor(frames.view(np.int16), device=self.device)
+                return x.to(torch.int32).bitwise_and(0xFFFF)
+            if str(frames.dtype) not in _UPLOAD_DTYPES:
+                frames = frames.astype(np.float32)
+            return torch.tensor(frames, device=self.device)
 
     def _predict_raw_dev(self, frames: np.ndarray) -> Tuple[torch.Tensor, ...]:
         """``predict_raw`` with the predictions left on the device, where
@@ -451,7 +454,9 @@ class InferenceEngine:
                 chunk = torch.cat([chunk, torch.zeros(
                     (bs - n, H, W), dtype=chunk.dtype, device=self.device)])
             try:
-                out = self._forward_chunk(chunk, sh, sw, th - sh, tw - sw)
+                with span("mseg.segment.forward"):
+                    out = self._forward_chunk(chunk, sh, sw, th - sh,
+                                              tw - sw)
             except torch.cuda.OutOfMemoryError:
                 self.oom_count += 1
                 out = self._zero_preds(bs, H, W)
@@ -493,31 +498,36 @@ class InferenceEngine:
             except torch.cuda.OutOfMemoryError:
                 self.oom_count += 1
                 stitched.append(self._zero_preds(chunk.shape[0], sh, sw))
-        return tuple(
-            resize(torch.cat([c[i] for c in stitched]), (H, W), "linear")
-            for i in range(len(stitched[0])))
+        with span("mseg.segment.stitch"):
+            return tuple(
+                resize(torch.cat([c[i] for c in stitched]), (H, W), "linear")
+                for i in range(len(stitched[0])))
 
     def _tiled_chunk(self, chunk: torch.Tensor, sh: int, sw: int, ph: int,
                      pw: int, tile: int, pos, bs_tile: int
                      ) -> Tuple[torch.Tensor, ...]:
         """Raw (b, H, W) frames -> stitched predictions at (b, sh, sw)."""
         b, n = chunk.shape[0], len(pos)
-        flat = self._cut_tiles(chunk, sh, sw, ph, pw, tile, pos).reshape(
-            b * n, tile, tile)
-        preds = [self._forward(flat[ts:ts + bs_tile])
-                 for ts in range(0, b * n, bs_tile)]
+        with span("mseg.segment.forward"):
+            flat = self._cut_tiles(chunk, sh, sw, ph, pw, tile, pos).reshape(
+                b * n, tile, tile)
+            preds = [self._forward(flat[ts:ts + bs_tile])
+                     for ts in range(0, b * n, bs_tile)]
         full = (sh + ph, sw + pw)
-        if self.label_type == "distance":
-            return tuple(
-                stitch_tiles_device(
-                    torch.cat([p[i] for p in preds]).view(b, n, tile, tile),
-                    pos, full)[:, :sh, :sw]
-                for i in range(2))
-        probs = torch.cat([p[0] for p in preds]).view(b, n, tile, tile, 3)
-        # channels ride the stitch batch axis: (b * 3, n, tile, tile)
-        chan = probs.movedim(-1, 1).reshape(b * 3, n, tile, tile)
-        sp = stitch_tiles_device(chan, pos, full).view(b, 3, *full)
-        return (sp[:, :, :sh, :sw].movedim(1, -1),)
+        with span("mseg.segment.stitch"):
+            if self.label_type == "distance":
+                return tuple(
+                    stitch_tiles_device(
+                        torch.cat([p[i] for p in preds]).view(b, n, tile,
+                                                              tile),
+                        pos, full)[:, :sh, :sw]
+                    for i in range(2))
+            probs = torch.cat([p[0] for p in preds]).view(b, n, tile, tile,
+                                                          3)
+            # channels ride the stitch batch axis: (b * 3, n, tile, tile)
+            chan = probs.movedim(-1, 1).reshape(b * 3, n, tile, tile)
+            sp = stitch_tiles_device(chan, pos, full).view(b, 3, *full)
+            return (sp[:, :, :sh, :sw].movedim(1, -1),)
 
     def predict_raw(self, frames: np.ndarray) -> Tuple[np.ndarray, ...]:
         """CNN predictions for a (T, H, W) stack (or one (H, W) frame) at
@@ -546,22 +556,27 @@ class InferenceEngine:
         cap = self._seeds_cap(H, W)
         masks = np.empty((T, H, W), np.uint16)
 
-        def run(i, *chunk):
-            if self.label_type == "distance":
-                m = distance_postprocessing(chunk[0], chunk[1], th_seed,
-                                            th_cell, max_seeds=cap)
-            else:
-                m = boundary_postprocessing(chunk[0], max_seeds=cap)
-            return m.cpu().numpy()
+        def run(i, dst, *chunk):
+            with span("mseg.segment.postprocess"):
+                if self.label_type == "distance":
+                    m = distance_postprocessing(chunk[0], chunk[1], th_seed,
+                                                th_cell, max_seeds=cap)
+                else:
+                    m = boundary_postprocessing(chunk[0], max_seeds=cap)
+            with span("mseg.segment.download"):
+                dst[...] = m.cpu().numpy()
 
         for s in range(0, T, bs):
             chunk = [p[s:s + bs] for p in preds]
             try:
                 if self.mesh is None:
-                    masks[s:s + bs] = run(0, *chunk)
+                    run(0, masks[s:s + bs], *chunk)
                 else:   # each device post-processes its share
-                    masks[s:s + bs] = np.concatenate(
-                        self._on_devices(run, self._shares(chunk)))
+                    shares = self._shares(chunk)
+                    ends = np.cumsum([s] + [sh[0].shape[0] for sh in shares])
+                    self._on_devices(run, [
+                        (masks[a:b], *sh)
+                        for a, b, sh in zip(ends, ends[1:], shares)])
             except torch.cuda.OutOfMemoryError:
                 self.oom_count += 1
                 masks[s:s + bs] = 0
@@ -580,9 +595,10 @@ class InferenceEngine:
         T, H, W = frames.shape
         cap = self._resident_frames_cap(H, W, frames.dtype)
         masks = np.empty(frames.shape, np.uint16)
-        for s in range(0, T, cap):
-            preds = self._predict_raw_dev(frames[s:s + cap])
-            masks[s:s + cap] = self.postprocess(preds, th_cell, th_seed)
+        with span("mseg.segment"):
+            for s in range(0, T, cap):
+                preds = self._predict_raw_dev(frames[s:s + cap])
+                masks[s:s + cap] = self.postprocess(preds, th_cell, th_seed)
         return masks[0] if squeeze else masks
 
     def segment_grid(self, frame: np.ndarray, th_pairs) -> np.ndarray:

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from microbeseg_torch.kernels import _build
+from microbeseg_torch.utils import profiling
 
 BIG_KEY = 0x7FFFFFFF
 _BIG = 3.0e38
@@ -208,6 +209,8 @@ def _launch_packed(value, markers, mask, n_levels, inner_steps, label_bits,
                  _build.stream_ptr(value))
     _build.check(err, name)
     _build.count_launch(name)
+    # the images run side by side: the slowest sets the launch's steps
+    profiling.count_steps(name, steps_out, "max")
     return out[0] if squeeze else out
 
 
@@ -337,6 +340,8 @@ def _launch_tiled(value, markers, mask, n_levels, steps_out=None,
                  _build.stream_ptr(value))
     _build.check(err, name)
     _build.count_launch(name)
+    # one launch a frame, one after the other
+    profiling.count_steps(name, steps_out, "sum")
     return out[0] if squeeze else out
 
 

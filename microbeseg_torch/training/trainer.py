@@ -70,6 +70,7 @@ from microbeseg_torch.training.losses import get_batch_loss
 from microbeseg_torch.training.optimizers import build_optimizer, set_learning_rate
 from microbeseg_torch.training.schedules import CosineAnnealingLR, ReduceLROnPlateau
 from microbeseg_torch.utils.device import resolve_device, upload
+from microbeseg_torch.utils.profiling import span
 
 
 def _noop(*a, **k):
@@ -172,20 +173,25 @@ class Trainer:
         world size, so that DDP's mean over the ranks is the gradient of
         the global weighted mean (padded slots weigh 0)."""
         self.model.train()
-        with self._autocast():
-            preds = self.net(images)
-        loss_sum = self.loss_fn(preds, labels, weights)
-        w_sum = all_reduce(torch.sum(weights).detach())
-        loss = loss_sum / torch.clamp(w_sum, min=1.0) * self.world
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("mseg.train.forward"):
+            with self._autocast():
+                preds = self.net(images)
+            loss_sum = self.loss_fn(preds, labels, weights)
+            w_sum = all_reduce(torch.sum(weights).detach())
+            loss = loss_sum / torch.clamp(w_sum, min=1.0) * self.world
+        with span("mseg.train.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         return loss_sum.detach()
 
     def train_step(self, images, labels, weights, params) -> torch.Tensor:
-        aug_img, aug_labels = apply_params(images, labels, params,
-                                           self.cfg.label_type)
-        loss_sum = self.forward_backward(aug_img, aug_labels, weights)
-        self.optimizer.step()
+        with span("mseg.train_step"):
+            with span("mseg.train.augment"):
+                aug_img, aug_labels = apply_params(images, labels, params,
+                                                   self.cfg.label_type)
+            loss_sum = self.forward_backward(aug_img, aug_labels, weights)
+            with span("mseg.train.optimizer"):
+                self.optimizer.step()
         return loss_sum
 
     @torch.no_grad()

@@ -388,6 +388,38 @@ def test_frame_front_kernel_matches_plain(dev, shape):
         "flood_tiled": 1, "flood_tiled_grid": 0}
 
 
+@pytest.mark.cuda
+def test_flood_steps_counts_what_the_kernels_ran(dev):
+    """While a profiler records, ``flood_steps`` takes a K1 launch's
+    largest step count (its images run side by side) and the sum of a K2
+    call's (one launch a frame); with none recording, nothing is kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from microbeseg_torch.ops.kernels import flood
+    from microbeseg_torch.utils import profiling
+
+    profiling.reset()
+    k1 = [torch.from_numpy(a).to(dev)
+          for a in _flood_cases(5, 4, 128, 128)[0][1:]]
+    k2 = [torch.from_numpy(a).to(dev)
+          for a in _frame_cases(6, 2, 1024, 1024)[0][1:]]
+    flood.flood_packed(*k1)
+    flood.flood_tiled(*k2)
+    assert profiling.summary() == {"spans": {}, "counters": {}}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        flood.flood_packed(*k1)
+        flood.flood_tiled(*k2)
+        torch.cuda.synchronize()
+    steps1 = torch.empty((4,), dtype=torch.int32, device=dev)
+    flood.flood_packed(*k1, steps_out=steps1)
+    steps2 = torch.empty((2,), dtype=torch.int32, device=dev)
+    flood.flood_tiled(*k2, steps_out=steps2)
+    want = {"flood_packed": max(steps1.tolist()),
+            "flood_tiled": sum(steps2.tolist())}
+    assert profiling.summary()["counters"] == {"flood_steps": want}
+    profiling.reset()
+
+
 def bf16_tolerance(a, b):
     """Bound on |kernel - plain| for the bf16 product: both round a float32
     sum to bfloat16, so they differ by at most one bfloat16 step of the

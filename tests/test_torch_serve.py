@@ -386,21 +386,26 @@ def test_parser_defaults_match_jax(cli):
 
 
 def test_profiling_matches_jax_and_traces(tmp_path):
-    """``StepTimer`` is JAX's (same summary and report from the same
-    durations); ``device_trace`` writes a Chrome trace of the block."""
-    from microbeseg_tpu.utils.profiling import StepTimer as JStepTimer
-    from microbeseg_torch.utils.profiling import StepTimer, device_trace
+    """``device_trace`` writes a Chrome trace of the block with the port's
+    spans in it, and ``spans.json``: the span and counter table of that
+    block alone (a second trace starts from nothing)."""
+    from microbeseg_torch.utils.profiling import device_trace, span
 
-    ours, ref = StepTimer(), JStepTimer()
-    for name, d in (("load", 0.25), ("step", 0.5), ("step", 0.125)):
-        ours.durations[name].append(d)
-        ref.durations[name].append(d)
-    assert ours.summary() == ref.summary() and ours.report() == ref.report()
-    with ours.phase("block"):
-        pass
-    assert ours.summary()["block"]["count"] == 1
-    with device_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert any("aten::" in e.get("name", "") for e in trace["traceEvents"])
-
+    for run in ("first", "second"):
+        with device_trace(str(tmp_path / run)):
+            with span(f"mseg.{run}"):
+                with span("mseg.inner"):
+                    torch.ones(8).sum()
+        trace = json.loads((tmp_path / run / "trace.json").read_text())
+        names = {e.get("name", "") for e in trace["traceEvents"]}
+        assert any("aten::" in n for n in names)
+        assert {f"mseg.{run}", "mseg.inner"} <= names
+        table = json.loads((tmp_path / run / "spans.json").read_text())
+        assert set(table["spans"]) == {f"mseg.{run}", "mseg.inner"}
+        assert table["counters"] == {}
+        outer, inner = table["spans"][f"mseg.{run}"], table["spans"][
+            "mseg.inner"]
+        assert outer["count"] == inner["count"] == 1
+        assert outer["host_s"] >= inner["host_s"] > 0
+        assert outer["self_s"] == pytest.approx(
+            outer["host_s"] - inner["host_s"], abs=1e-9)
