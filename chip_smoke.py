@@ -43,7 +43,10 @@
    ``torch._int_mm`` / ``torch.matmul``.  K5's convolution entry,
    ``conv3x3_int8``, exactly equal to the 9-tap operand, the plain product
    and the float32 dequantise in turn, at every layer shape of the int8
-   paths, timed beside ``F.conv2d`` in bfloat16.
+   paths, timed beside ``F.conv2d`` in bfloat16.  The fused convolution
+   epilogue (``conv_epilogue``, relu, bfloat16) within one bfloat16 step of
+   its plain version at 8 x 64 x 512^2, timed beside the three passes it
+   replaces (bias add, ReLU, eval BatchNorm), one by one and as a chain.
 4. Crop path: builds the full-width distance DUNet (filters 64 -> 1024, bn,
    relu, conv pooling) with numpy-seeded weights and runs
    ``InferenceEngine.segment`` on 48 uint16 frames of 256^2 (3 batches of
@@ -264,6 +267,9 @@ CONV_SHAPES = ((B, SIDE, SIDE, 64, 64), (B, SIDE, SIDE, 128, 64),
                (8, 512, 512, 64, 64), (8, 512, 512, 128, 64),
                (8, 256, 256, 128, 128), (8, 256, 256, 256, 128),
                (2, 40, 200, 192, 72))
+# the fused convolution epilogue's timed shape (N, C, H, W): the cells'
+# largest activation, level 0 of a forward of 8 tiles of 512^2
+EPILOGUE_SHAPE = (8, 64, 512, 512)
 
 
 def card_line() -> str:
@@ -686,6 +692,7 @@ def check_kernels(dev, report):
     results["flood_packed"].update(sides=sides, **split)
     check_big_kernels(dev, rng, results, exact)
     check_matmul(dev, results)
+    check_epilogue(dev, results)
     for r in results.values():
         for suffix in ("", "_320", "_2048", "_4096"):
             if "bytes" + suffix not in r:
@@ -1242,6 +1249,71 @@ def check_conv(dev, results):
         source="microbeseg_torch/csrc/matmul.cu",
         replaces="scripts/bench_pallas_int8_dot.py:46",
         shape=list(CONV_SHAPES[0]), shapes=shapes, **shapes[first])
+
+
+def check_epilogue(dev, results):
+    """The fused convolution epilogue (``conv_epilogue``, relu, bfloat16,
+    channels-last) at ``EPILOGUE_SHAPE`` against its plain version, within
+    one bfloat16 step, and timed: the kernel, the plain version, and the
+    three passes it replaces one by one (the convolution's broadcast bias
+    add in place, ReLU, eval BatchNorm) and as a chain (``library_ms``).
+    BatchNorm's scales lie in (0.5, 0.9) in size, so the values stay finite
+    under repeated in-place launches."""
+    import torch.nn.functional as F
+
+    from microbeseg_torch.ops.kernels.epilogue import (conv_epilogue,
+                                                       conv_epilogue_plain)
+
+    N, C, H, W = EPILOGUE_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bn = torch.nn.BatchNorm2d(C).to(dev).eval()
+    with torch.no_grad():
+        sign = torch.where(torch.rand(C, device=dev, generator=gen) < 0.3,
+                           -1.0, 1.0)
+        bn.weight.copy_(sign * (0.5 + 0.4 * torch.rand(
+            C, device=dev, generator=gen)))
+        bn.bias.copy_(torch.randn(C, device=dev, generator=gen) * 0.5)
+        bn.running_mean.copy_(torch.randn(C, device=dev, generator=gen) * 0.3)
+        bn.running_var.copy_(0.9 + 0.2 * torch.rand(C, device=dev,
+                                                    generator=gen))
+    bias = torch.randn(C, device=dev, generator=gen) * 0.5
+    z = (3 * torch.randn((N, C, H, W), device=dev, generator=gen)).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    want = conv_epilogue_plain(z, bias, bn, "relu")
+    got = conv_epilogue(z.clone(memory_format=torch.channels_last), bias, bn,
+                        "relu")
+    err = (got.float() - want.float()).abs()
+    _, e = torch.frexp(want.float())
+    if bool((err > torch.ldexp(torch.ones_like(err), e - 8)).any()):
+        raise AssertionError("conv_epilogue differs from plain by more than "
+                             f"one bfloat16 step: {float(err.max())}")
+    del got, want
+    bias16 = bias.to(torch.bfloat16).view(1, -1, 1, 1)
+    rm, rv, w, b = bn.running_mean, bn.running_var, bn.weight, bn.bias
+
+    def chain():
+        return F.batch_norm(F.relu(z + bias16), rm, rv, w, b, False, 0.1,
+                            bn.eps)
+
+    with torch.inference_mode():
+        unfused = dict(
+            bias_add_ms=cuda_ms(lambda: z.add_(bias16), 20),
+            relu_ms=cuda_ms(lambda: F.relu(z), 20),
+            batch_norm_ms=cuda_ms(lambda: F.batch_norm(
+                z, rm, rv, w, b, False, 0.1, bn.eps), 20))
+        r = dict(ms=cuda_ms(lambda: conv_epilogue(z, bias, bn, "relu"), 50),
+                 plain_ms=cuda_ms(lambda: conv_epilogue_plain(
+                     z, bias, bn, "relu"), 5),
+                 library_ms=cuda_ms(chain, 20),
+                 **bound(4 * z.numel(), 0, 1.0))
+    r.update(unfused_ms=unfused, unfused_sum_ms=sum(unfused.values()),
+             roofline=r["bound_ms"] / r["ms"], shape=list(EPILOGUE_SHAPE),
+             max_abs_err=float(err.max()),
+             source="microbeseg_torch/csrc/epilogue.cu", replaces="none",
+             **host_and_device(lambda: conv_epilogue(z, bias, bn, "relu")))
+    results["conv_epilogue"] = r
+    del z
+    torch.cuda.empty_cache()
 
 
 def plain_flood(value, markers, mask, n_levels, max_label):

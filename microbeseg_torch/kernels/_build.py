@@ -31,7 +31,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flood", "flood_frame", "cc", "matmul")
+SOURCES = ("flood", "flood_frame", "cc", "matmul", "epilogue")
 
 # launches per kernel wrapper (plain integers; reset with reset_launches)
 LAUNCHES: Dict[str, int] = {"flood_packed": 0, "flood_packed_cluster": 0,
@@ -41,7 +41,11 @@ LAUNCHES: Dict[str, int] = {"flood_packed": 0, "flood_packed_cluster": 0,
                             "sequentialize_components": 0,
                             "ranked_components": 0,
                             "matmul_int8": 0, "matmul_bf16": 0,
-                            "conv3x3_int8": 0,
+                            "conv3x3_int8": 0, "conv_epilogue": 0,
+                            # not a kernel: an eval-mode, no-grad chain
+                            # [conv -> act -> BatchNorm] on the card that
+                            # ran as modules, not through conv_epilogue
+                            "conv_epilogue_fallback": 0,
                             # not a kernel: the plain watershed flood taken
                             # for labels the packed key cannot carry
                             "watershed_route": 0}
@@ -128,16 +132,17 @@ def load(name: str) -> ctypes.CDLL:
 _ENTRIES: Dict[tuple, object] = {}
 
 
-def entry(lib: str, name: str, n_ptrs: int, n_ints: int):
+def entry(lib: str, name: str, n_ptrs: int, n_ints: int,
+          n_floats: int = 0):
     """The C entry ``name`` of ``csrc/<lib>.cu``: ``n_ptrs`` pointers, then
-    ``n_ints`` ints, then the stream; returns the launches'
-    ``cudaGetLastError()``.  Looked up and typed once."""
+    ``n_ints`` ints, then ``n_floats`` floats, then the stream; returns the
+    launches' ``cudaGetLastError()``.  Looked up and typed once."""
     fn = _ENTRIES.get((lib, name))
     if fn is None:
         fn = getattr(load(lib), name)
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         _ENTRIES[(lib, name)] = fn
     return fn
 

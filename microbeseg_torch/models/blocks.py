@@ -14,11 +14,19 @@ product, with ``nn.ConvTranspose2d``'s parameters.
 ``ConvBlock(remat_policy=)`` recomputes the block's activations in the
 backward pass instead of keeping them (the JAX package's ``nn.remat`` of
 ``ConvBlock``), with the same numbers and the same ``state_dict``.
+
+In eval mode with grad off on the card, each chain [conv -> act ->
+BatchNorm] of ``ConvBlock``, ``ConvPool`` and ``TranspConvBlock`` (no act)
+runs as the convolution without its bias and one ``conv_epilogue`` launch
+(``ops/kernels/epilogue.py``) in place of the bias add, the activation and
+the BatchNorm; ``epilogue_route`` decides from what the modules, the grad
+mode and the input show.  Every other case runs the modules.
 """
 
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -26,21 +34,12 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from microbeseg_torch.kernels import _build
+from microbeseg_torch.ops.kernels.epilogue import (conv_epilogue_unchecked,
+                                                   mish, refusal)
 from microbeseg_torch.ops.kernels.matmul import (conv3x3_int8, dequantize,
                                                  matmul_int8, tap_operand)
 from microbeseg_torch.parallel.mesh import all_reduce, is_distributed
-
-
-def mish(x: torch.Tensor) -> torch.Tensor:
-    """mish(x) = x * tanh(softplus(x)) with one exp, the JAX package's form:
-    tanh(log(1 + u)) = u(u + 2) / (u(u + 2) + 2) with u = e^x, evaluated at
-    min(x, 12) and replaced by 1 above 12, where mish(x) = x to machine
-    precision.  Same arithmetic as the reference model, so f32 forwards
-    agree to the convolutions' summation order."""
-    u = torch.exp(torch.clamp(x, max=12.0))
-    v = u * (u + 2.0)
-    t = torch.where(x > 12.0, torch.ones_like(x), v / (v + 2.0))
-    return x * t
 
 
 class Mish(nn.Module):
@@ -97,6 +96,71 @@ class CrossReplicaBatchNorm2d(nn.BatchNorm2d):
         shift = self.bias - mean * scale
         y = xf * scale.view(1, c, 1, 1) + shift.view(1, c, 1, 1)
         return y.to(x.dtype)
+
+
+def _fused_act(act: Optional[nn.Module]) -> Optional[str]:
+    """The ``conv_epilogue`` activation that computes ``act`` (None:
+    'identity'), or None for one it does not have."""
+    if act is None:
+        return "identity"
+    kind = type(act)
+    if kind is nn.ReLU:
+        return "relu"
+    if kind is nn.LeakyReLU and act.negative_slope == 0.01:
+        return "leakyrelu"
+    if kind is nn.ELU and act.alpha == 1.0:
+        return "elu"
+    if kind is Mish:
+        return "mish"
+    return None
+
+
+def epilogue_route(training: bool, grad_enabled: bool, device_type: str,
+                   norm: nn.Module, act: Optional[nn.Module], channels: int,
+                   quantize: bool = False) -> Optional[str]:
+    """How a chain [conv -> act -> norm] with ``channels`` outputs runs:
+    'fused' (the convolution without its bias, then ``conv_epilogue``) in
+    eval mode with grad off on the card, where the norm is a BatchNorm with
+    running statistics and affine parameters, the activation one that
+    ``conv_epilogue`` has, the channels a multiple of 8 and the int8 path
+    off; 'fallback' where only these last conditions fail (the modules run,
+    counted as ``conv_epilogue_fallback``); None where the route does not
+    apply (training, grad on, the CPU, GroupNorm or instance norm)."""
+    if (training or grad_enabled or device_type != "cuda"
+            or not isinstance(norm, nn.BatchNorm2d)):
+        return None
+    if (quantize or channels % 8 or _fused_act(act) is None
+            or norm.weight is None or norm.running_mean is None):
+        return "fallback"
+    return "fused"
+
+
+def _route(module: nn.Module, x: torch.Tensor, norm: nn.Module,
+           act: Optional[nn.Module], channels: int, chains: int,
+           quantize: bool = False) -> Optional[str]:
+    """``epilogue_route`` for ``module``'s ``chains`` chains on ``x``; a
+    fallback is counted once a chain."""
+    route = epilogue_route(module.training or norm.training,
+                           torch.is_grad_enabled(), x.device.type, norm, act,
+                           channels, quantize)
+    if route == "fallback":
+        for _ in range(chains):
+            _build.count_launch("conv_epilogue_fallback")
+    return route
+
+
+def _epilogue(z: torch.Tensor, bias: Optional[torch.Tensor],
+              act: Optional[nn.Module], norm: nn.Module) -> torch.Tensor:
+    """``norm(act(z + bias))`` for ``z``, a convolution's output without its
+    bias: one ``conv_epilogue`` launch, or the modules (a fallback) where
+    ``z`` or the parameters are not what the kernel takes."""
+    name = _fused_act(act)
+    if refusal(z, bias, norm, name) is None:
+        return conv_epilogue_unchecked(z, bias, norm, name)
+    _build.count_launch("conv_epilogue_fallback")
+    if bias is not None:
+        z = z + bias.to(z.dtype).view(1, -1, 1, 1)
+    return norm(z if act is None else act(z))
 
 
 def make_norm(kind: str, ch: int) -> nn.Module:
@@ -316,6 +380,13 @@ class ConvBlock(nn.Module):
         if (self.remat_policy is not None and self.training
                 and torch.is_grad_enabled()):
             return self._remat(x)
+        conv0, act0, norm0, conv1, act1, norm1 = self.conv
+        if _route(self, x, norm0, act0, conv0.out_channels, 2,
+                  self.quantize) == "fused":
+            x = _epilogue(conv0._conv_forward(x, conv0.weight, None),
+                          conv0.bias, act0, norm0)
+            return _epilogue(conv1._conv_forward(x, conv1.weight, None),
+                             conv1.bias, act1, norm1)
         if not self.quantize or self.training:
             return self.conv(x)
         for layer in self.conv:
@@ -339,6 +410,10 @@ class ConvPool(nn.Module):
             make_act(act_fun), make_norm(normalization, ch))
 
     def forward(self, x):
+        conv, act, norm = self.conv_pool
+        if _route(self, x, norm, act, conv.out_channels, 1) == "fused":
+            return _epilogue(conv._conv_forward(x, conv.weight, None),
+                             conv.bias, act, norm)
         return self.conv_pool(x)
 
 
@@ -365,7 +440,8 @@ class _MatmulUp(nn.ConvTranspose2d):
 class TranspConvBlock(nn.Module):
     """Upsample: transposed conv 2x2 stride 2 -> norm.  ``up_impl``: 'conv'
     is ``nn.ConvTranspose2d``, 'matmul' the equivalent matrix product
-    (``_MatmulUp``, same parameters)."""
+    (``_MatmulUp``, same parameters); on the fused eval route both run as
+    the transposed convolution without its bias."""
 
     def __init__(self, ch_in: int, ch_out: int, normalization: str = "bn",
                  up_impl: str = "conv"):
@@ -378,6 +454,11 @@ class TranspConvBlock(nn.Module):
         self.norm = make_norm(normalization, ch_out)
 
     def forward(self, x):
+        up = self.up[0]
+        if _route(self, x, self.norm, None, up.out_channels, 1) == "fused":
+            z = F.conv_transpose2d(x, up.weight, None, up.stride, up.padding,
+                                   up.output_padding, up.groups, up.dilation)
+            return _epilogue(z, up.bias, None, self.norm)
         return self.norm(self.up(x))
 
 

@@ -551,3 +551,163 @@ def test_conv3x3_int8_matches_plain(dev, channels, width):
                           torch.zeros((O,), device=dev), torch.float32)
     assert float(got[:, 1:-1, 1:-1].max()) == -127.0 * 127 * 9 * C
     assert float(got[:, 0, 0].min()) == -127.0 * 127 * 4 * C
+
+
+def _epilogue_bn(C, gen, dev):
+    """An eval BatchNorm2d on ``dev`` with non-trivial parameters: weights
+    of both signs, non-zero shift and mean, variance away from 1."""
+    from torch import nn
+
+    bn = nn.BatchNorm2d(C, eps=1e-5).to(dev).eval()
+    with torch.no_grad():
+        sign = torch.where(torch.rand(C, generator=gen) < 0.3, -1.0, 1.0)
+        bn.weight.copy_(sign * (0.5 + torch.rand(C, generator=gen)))
+        bn.bias.copy_(torch.randn(C, generator=gen) * 0.5)
+        bn.running_mean.copy_(torch.randn(C, generator=gen) * 0.3)
+        bn.running_var.copy_(0.2 + 2 * torch.rand(C, generator=gen))
+    return bn
+
+
+def _ulp(x, dtype):
+    """The spacing of ``dtype``'s values at |x|, in float32."""
+    digits = 8 if dtype == torch.bfloat16 else 24
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - digits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [32, 64, 512, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ["identity", "relu", "leakyrelu", "elu",
+                                 "mish"])
+def test_conv_epilogue_matches_plain(dev, act, dtype, channels):
+    """The fused epilogue kernel against its plain version on the card,
+    within one ulp of the output type, in place, one launch counted; on a
+    ragged number of pixels (no whole pass of a block)."""
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.ops.kernels.epilogue import (conv_epilogue,
+                                                       conv_epilogue_plain)
+
+    gen = torch.Generator().manual_seed(channels + len(act))
+    bn = _epilogue_bn(channels, gen, dev)
+    bias = (torch.randn(channels, generator=gen) * 0.5).to(dev)
+    z = (3 * torch.randn(3, channels, 37, 41, generator=gen)).to(
+        dev, dtype).contiguous(memory_format=torch.channels_last)
+    want = conv_epilogue_plain(z, bias, bn, act)
+    before = _build.LAUNCHES["conv_epilogue"]
+    got = conv_epilogue(z.clone(memory_format=torch.channels_last), bias, bn,
+                        act)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["conv_epilogue"] == before + 1
+    assert got.dtype == dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= _ulp(want, dtype)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["identity", "relu", "leakyrelu", "elu",
+                                 "mish"])
+def test_conv_epilogue_matches_the_module_chain(dev, act):
+    """bf16 autocast, channels-last: the convolution without its bias and
+    the epilogue against ``bn(act(conv(x)))`` of the modules, within two
+    bf16 ulps of the terms (the chain rounds the bias, the sum, the
+    activation and the normalised value; the epilogue rounds once)."""
+    from torch import nn
+
+    from microbeseg_torch.models.blocks import make_act
+    from microbeseg_torch.ops.kernels.epilogue import conv_epilogue
+
+    C = 64
+    gen = torch.Generator().manual_seed(len(act))
+    torch.manual_seed(len(act))
+    if act == "identity":
+        conv, act_mod = nn.ConvTranspose2d(128, C, 2, stride=2), None
+    else:
+        conv, act_mod = nn.Conv2d(128, C, 3, padding=1), make_act(act)
+    conv = conv.to(dev).to(memory_format=torch.channels_last)
+    with torch.no_grad():
+        conv.bias.copy_(torch.randn(C, generator=gen) * 0.5)
+    bn = _epilogue_bn(C, gen, dev)
+    x = torch.randn(4, 128, 40, 48, generator=gen).to(dev).contiguous(
+        memory_format=torch.channels_last)
+    with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16):
+        z = conv(x)
+        want = bn(z if act_mod is None else act_mod(z))
+        if act_mod is None:
+            zb = nn.functional.conv_transpose2d(x, conv.weight, None, 2)
+        else:
+            zb = conv._conv_forward(x, conv.weight, None)
+        a = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+        scale = ((zb.float().abs() + conv.bias.abs().view(1, -1, 1, 1))
+                 * a.abs().view(1, -1, 1, 1) + bn.bias.abs().view(1, -1, 1, 1)
+                 + (bn.running_mean * a).abs().view(1, -1, 1, 1))
+        got = conv_epilogue(zb, conv.bias, bn, act)
+    # autocast runs mish's exp in float32, so that chain hands on float32
+    # (rounded to bfloat16 by the next convolution); the epilogue writes
+    # the convolution's type
+    assert got.dtype == torch.bfloat16
+    assert want.dtype == (torch.float32 if act == "mish" else torch.bfloat16)
+    err = (got.float() - want.float()).abs()
+    bf16_eps = torch.finfo(torch.bfloat16).eps
+    assert bool((err <= 2 * bf16_eps * scale).all()), float(
+        (err / scale).max())
+
+
+def _random_dunet(normalization, dev, seed=0):
+    """The full-width DUNet (64, 1024), relu, with non-trivial biases and
+    BatchNorm statistics, channels-last on ``dev``, in eval mode."""
+    from torch import nn
+
+    from microbeseg_torch.config import ModelConfig
+    from microbeseg_torch.models.unet import build_unet
+
+    torch.manual_seed(seed)
+    gen = torch.Generator().manual_seed(seed)
+    model = build_unet(ModelConfig(normalization=normalization))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.load_state_dict(
+                    _epilogue_bn(m.num_features, gen, "cpu").state_dict())
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.2)
+    return model.to(dev).to(memory_format=torch.channels_last).eval()
+
+
+@pytest.mark.cuda
+def test_dunet_eval_forward_takes_the_fused_epilogue(dev):
+    """A DUNet (64, 1024) eval forward under ``inference_mode`` and bf16
+    autocast launches 38 epilogues (10 encoder convolutions, 4 pools, 2 x
+    (4 upsamplings + 8 convolutions)) and no fallback; its fields agree with
+    the module chain's (eval, grad on) within bf16 rounding.  Training mode
+    and GroupNorm launch none."""
+    from microbeseg_torch.kernels import _build
+
+    model = _random_dunet("bn", dev)
+    x = torch.rand(2, 128, 128, 1, generator=torch.Generator().manual_seed(
+        1)).to(dev)
+    with torch.autocast("cuda", torch.bfloat16):
+        _build.reset_launches()
+        want = model(x)
+        assert _build.LAUNCHES["conv_epilogue"] == 0
+        assert _build.LAUNCHES["conv_epilogue_fallback"] == 0
+        with torch.inference_mode():
+            got = model(x)
+            assert _build.LAUNCHES["conv_epilogue"] == 38
+            assert _build.LAUNCHES["conv_epilogue_fallback"] == 0
+            got = model(x)
+            assert _build.LAUNCHES["conv_epilogue"] == 76
+        for g, w in zip(got, want):
+            w = w.detach()
+            rms = float(w.float().pow(2).mean().sqrt())
+            assert rms > 0
+            assert float((g - w).float().pow(2).mean().sqrt()) <= 0.01 * rms
+        gn = _random_dunet("gn", dev)
+        _build.reset_launches()
+        with torch.inference_mode():
+            gn(x)
+        with torch.no_grad():
+            model.train()(x)
+        assert _build.LAUNCHES["conv_epilogue"] == 0
+        assert _build.LAUNCHES["conv_epilogue_fallback"] == 0
