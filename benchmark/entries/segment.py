@@ -30,7 +30,8 @@ class Driver(drivers.Driver):
 
     # the engine runs bf16 autocast on the card, and nothing else
     CONFIG_KEYS = ("precision", "label_type")
-    RUNS = {"precision": ("bfloat16",), "label_type": ("distance",)}
+    RUNS = {"family": ("unet",), "precision": ("bfloat16",),
+            "label_type": ("distance",)}
     TRAFFIC_KEYS = ("entry", "frame", "stack", "pool", "objects", "radius",
                     "intensity", "infer", "must_launch", "must_not_launch",
                     "sample", "traced_seconds")
@@ -43,6 +44,18 @@ class Driver(drivers.Driver):
             raise ValueError(f"infer settings the reference does not run: "
                              f"{extra}")
 
+    @classmethod
+    def tiny(cls, mix: dict, limits: dict):
+        """The mix and limits at a size the CPU runs in seconds: small
+        frames, stacks and tiles, no kernel required to launch."""
+        tiled = mix["infer"].get("use_tiling")
+        mix = dict(mix, frame=160 if tiled else 64, stack=4, pool=3,
+                   sample=2, objects=[2, 8], traced_seconds=0.5,
+                   must_launch=[])
+        if tiled:
+            mix["infer"] = dict(mix["infer"], tile_size=64, tile_overlap=16)
+        return mix, dict(limits, frames_compared=1)
+
     def setup(self) -> None:
         from microbeseg_torch.config import InferConfig, ModelConfig
         from microbeseg_torch.inference.engine import InferenceEngine
@@ -51,7 +64,8 @@ class Driver(drivers.Driver):
 
         mix = self.mix
         self.mark("imports")
-        self.state = weights.make(self.mcfg, self.seed, self.dev, "averaging")
+        self.state = weights.make(self.mcfg, self.seed, self.dev, "averaging",
+                                  self.family)
         self.mark("weights")
         n = mix["stack"] * mix["pool"]
         self.pool = gen.frames(mix, self.seed, n, self.dev).reshape(

@@ -19,11 +19,19 @@ class Driver(drivers.Driver):
     CONFIG_KEYS = ("precision", "label_type", "loss", "optimizer",
                    "learning_rate")
     # what the reference (``reference/train.py``) and the control follow
-    RUNS = {"precision": ("bfloat16",), "label_type": ("distance",),
-            "loss": ("smooth_l1",), "optimizer": ("ranger",)}
+    RUNS = {"family": ("unet",), "precision": ("bfloat16",),
+            "label_type": ("distance",), "loss": ("smooth_l1",),
+            "optimizer": ("ranger",)}
     TRAFFIC_KEYS = ("entry", "frame", "batch", "pool", "objects", "radius",
                     "intensity", "checked_steps", "warm_steps",
                     "traced_seconds")
+
+    @classmethod
+    def tiny(cls, mix: dict, limits: dict):
+        """The mix at a size the CPU runs in seconds: 64^2 crops, one warm
+        step."""
+        return dict(mix, frame=64, pool=16, objects=[2, 8],
+                    warm_steps=1), limits
 
     def setup(self) -> None:
         from microbeseg_torch.config import ModelConfig, TrainConfig
@@ -32,7 +40,8 @@ class Driver(drivers.Driver):
 
         mix, conf = self.mix, self.cell.config
         self.mark("imports")
-        self.state = weights.make(self.mcfg, self.seed, self.dev, "lecun")
+        self.state = weights.make(self.mcfg, self.seed, self.dev, "lecun",
+                                  self.family)
         self.mark("weights")
         imgs, planes = gen.frames(mix, self.seed, mix["pool"], self.dev,
                                   fields=True)

@@ -8,6 +8,8 @@ import sys
 from pathlib import Path
 from typing import Dict, List
 
+from benchmark import families
+
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "benchmark"
 
@@ -69,15 +71,15 @@ def forbidden_modules(modules=None) -> List[str]:
     return sorted({m for m in names if m.split(".")[0] in FORBIDDEN})
 
 
-# a configuration file: the network (``ModelConfig``'s fields), the keys
-# its entry's driver reads (``CONFIG_KEYS``) and notes (these, and
-# optionally what was ``assumed``)
-MODEL_KEYS = ("unet_type", "act_fun", "pool_method", "normalization",
-              "ch_in", "ch_out", "filters")
+# a configuration file: its family's network keys (``benchmark/families``),
+# the keys its entry's driver reads (``CONFIG_KEYS``) and notes (these, and
+# optionally the family, what was ``assumed`` and the ``published`` values
+# of what was ``reduced``)
 NOTE_KEYS = ("name", "source", "reduced")
+OPTIONAL_KEYS = ("family", "assumed", "published")
 
 
 def model_config(config: dict) -> Dict:
-    """The ``ModelConfig`` fields of a configuration file."""
-    return {k: (tuple(config[k]) if k == "filters" else config[k])
-            for k in MODEL_KEYS}
+    """The network's settings of a configuration file, as its family reads
+    them."""
+    return families.of(config).model_config(config)

@@ -9,9 +9,11 @@ port's state; ``check()`` runs the reference and returns the numbers that
 decide ``correct``, each with its limit.
 
 A driver names every key of the configuration and of the traffic mix that
-it reads (``CONFIG_KEYS``, ``TRAFFIC_KEYS``) and the values it can run
-(``RUNS``): a file with a key it does not read, or a value it cannot run,
-is refused before set-up rather than run as something else.
+it reads (``CONFIG_KEYS``, ``TRAFFIC_KEYS``; the network's keys are the
+configuration's family's, ``benchmark/families``) and the values it can
+run (``RUNS``, ``"family"`` among them): a file of another family, with a
+key it does not read, or with a value it cannot run, is refused before
+set-up rather than run as something else.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from benchmark.harness.common import MODEL_KEYS, NOTE_KEYS, model_config
+from benchmark import families
+from benchmark.harness.common import NOTE_KEYS, OPTIONAL_KEYS
 
 
 def load(entry: str) -> type:
@@ -87,21 +90,37 @@ class Driver:
         self.cell, self.seed, self.dev = cell, seed, torch.device(device)
         self.mix, self.control, self.log = cell.traffic, control, log
         self.accept(cell.config, cell.traffic)
-        self.mcfg = model_config(cell.config)
+        self.family = families.of(cell.config)
+        self.mcfg = self.family.model_config(cell.config)
         self.phases: List[tuple] = []
 
     @classmethod
     def accept(cls, config: dict, traffic: dict) -> None:
         """Refuse a configuration or mix this entry would not run as it
         says."""
+        given = dict(config, family=families.name_of(config))
+
+        def refuse_values(keys):
+            for key in keys:
+                if given[key] not in cls.RUNS[key]:
+                    raise ValueError(f"{key} {given[key]!r}: this entry and "
+                                     f"the reference run only "
+                                     f"{cls.RUNS[key]}")
+
+        # the family first: its keys are asked of a family this entry runs
+        refuse_values([k for k in cls.RUNS if k == "family"])
         _refuse_keys(f"configuration {config.get('name')!r}", config,
-                     MODEL_KEYS + NOTE_KEYS + cls.CONFIG_KEYS, ("assumed",))
+                     families.of(config).KEYS + NOTE_KEYS + cls.CONFIG_KEYS,
+                     OPTIONAL_KEYS)
         _refuse_keys(f"traffic mix of entry {traffic.get('entry')!r}",
                      traffic, cls.TRAFFIC_KEYS)
-        for key, values in cls.RUNS.items():
-            if config[key] not in values:
-                raise ValueError(f"{key} {config[key]!r}: this entry and the "
-                                 f"reference run only {values}")
+        refuse_values([k for k in cls.RUNS if k != "family"])
+
+    @classmethod
+    def tiny(cls, mix: dict, limits: dict):
+        """The mix and limits at a size the CPU runs in seconds (the
+        benchmark's tests)."""
+        raise NotImplementedError(f"{cls.__module__} gives no CPU preset")
 
     def mark(self, phase: str) -> None:
         """The end of a set-up phase (logged by ``core.run``)."""

@@ -1,14 +1,16 @@
 """Weights made on the device from the seed, in a few large draws, for the
-entries of the reference's state dict.
+entries of the state dict that the configuration's family lists
+(``state_shapes``, ``benchmark/families``).  Kinds: ``conv`` a kernel
+(out, in, ...) whose fan-in is every axis but the first (a linear layer's
+too), ``convT`` a transposed kernel (in, out, kh, kw), and the constants
+``bias``, ``scale``, ``shift``, ``mean``, ``var``, ``count``.
 
 ``averaging``: the inference cells' weights.  Random weights have no
-trained scale, so every convolution kernel is non-negative and sums to 1
-over its inputs (a weighted average): the fields then follow the frames'
-cells instead of turning into speckle, at the same scale under every seed.
+trained scale, so every kernel is non-negative and sums to 1 over its
+inputs (a weighted average): the fields then follow the frames' cells
+instead of turning into speckle, at the same scale under every seed.
 Norms are the identity (scale 1, shift 0, running mean 0, variance 1),
-biases 0.  The border head's output convolution is scaled by
-``BORDER_SCALE``, so that its field stays below the cell field and both
-heads move the seeds.
+biases 0.  A family may scale single kernels (``averaging_scale``).
 
 ``lecun``: the training cell's weights, a standard start: kernels normal
 with variance 1 / fan-in, biases 0, norm scales 1 and shifts 0.
@@ -20,8 +22,8 @@ from typing import Dict
 
 import torch
 
+from benchmark import families
 from benchmark.harness.gen import generator
-from benchmark.reference.unet import state_shapes
 
 
 def _numel(shape) -> int:
@@ -39,11 +41,13 @@ def _constant(kind, shape, device):
     return torch.zeros(shape, device=device)
 
 
-BORDER_SCALE = 0.5
-
-
-def make(cfg: dict, seed: int, device, kind: str) -> Dict[str, torch.Tensor]:
-    shapes = state_shapes(cfg)
+def make(cfg: dict, seed: int, device, kind: str,
+         family=None) -> Dict[str, torch.Tensor]:
+    """The weights of ``cfg``, a family's ``model_config``; ``family`` its
+    module (the default family where None)."""
+    family = family or families.load(families.DEFAULT)
+    shapes = family.state_shapes(cfg)
+    scale = getattr(family, "averaging_scale", None)
     kernels = {n: s for n, (k, s) in shapes.items() if k in ("conv", "convT")}
     g = generator(seed, 2, device)
     total = sum(_numel(s) for s in kernels.values())
@@ -63,13 +67,14 @@ def make(cfg: dict, seed: int, device, kind: str) -> Dict[str, torch.Tensor]:
         if kind == "averaging":
             # a transposed 2x2 stride-2 kernel gives each output pixel one
             # tap: it sums to 1 over the inputs per output channel and tap
-            axes = (0,) if k == "convT" else (1, 2, 3)
+            axes = (0,) if k == "convT" else tuple(range(1, len(shape)))
             w = w / w.sum(dim=axes, keepdim=True)
-            if name.startswith("decoder1Conv.") and shape[2] == 1:
-                w = w * BORDER_SCALE
+            f = scale(name, shape) if scale else 1.0
+            if f != 1.0:
+                w = w * f
         else:
-            fan_in = (shape[0] if k == "convT" else shape[1]) * shape[2] * \
-                shape[3]
+            fan_in = (shape[0] * _numel(shape[2:]) if k == "convT"
+                      else _numel(shape[1:]))
             w = w / fan_in ** 0.5
         out[name] = w.contiguous()
     return out

@@ -21,21 +21,15 @@ def cell(name: str) -> Cell:
 
 
 def tiny(name: str) -> Cell:
-    """The cell at a size the CPU runs in seconds: a narrow network
-    (filters 8 -> 32), small frames and stacks, the same limits."""
+    """The cell at a size the CPU runs in seconds: the configuration's
+    family's preset (a narrow network) and the entry's (small frames,
+    stacks or crops, and the limits that count them)."""
+    from benchmark import families
+    from benchmark.harness import drivers
     c = cell(name)
-    c.config = dict(c.config, filters=[8, 32])
-    t = dict(c.traffic)
-    if t["entry"] == "segment":
-        tiled = t["infer"].get("use_tiling")
-        t.update(frame=160 if tiled else 64, stack=4, pool=3, sample=2,
-                 objects=[2, 8], traced_seconds=0.5, must_launch=[])
-        if tiled:
-            t["infer"] = dict(t["infer"], tile_size=64, tile_overlap=16)
-    else:
-        t.update(frame=64, pool=16, objects=[2, 8], warm_steps=1)
-    c.traffic = t
-    c.limits = dict(c.limits, frames_compared=1)
+    c.config = families.of(c.config).tiny(c.config)
+    c.traffic, c.limits = drivers.load(c.traffic["entry"]).tiny(c.traffic,
+                                                                c.limits)
     return c
 
 

@@ -6,7 +6,7 @@ import pytest
 import torch
 from torch import nn
 
-from benchmark.harness.common import BENCH, HBM_BYTES_PER_S
+from benchmark.harness.common import BENCH, HBM_BYTES_PER_S, Cell
 from benchmark.reference.unet import conv_layers, forward_flops
 
 
@@ -86,3 +86,20 @@ def test_segment_flops_per_frame():
     # starts 0, 448, 896, 1344 and 1536: five a side
     assert m.flops_per_frame(conf, tiled) == 25 * forward_flops(CFG, 512,
                                                                 512)
+
+
+@pytest.mark.parametrize("name,metric,count,flops", [
+    ("dunet-crops256", "segment_mfu_pct", "flops_per_frame",
+     163_301_031_936),
+    # 25 tiles of 512^2 a frame
+    ("dunet-tiled2048", "segment_mfu_pct", "flops_per_frame",
+     16_330_103_193_600),
+    # three forwards at 256^2 an image
+    ("dunet-mish-gn-train-b4", "train_mfu_pct", "flops_per_image",
+     489_903_095_808),
+])
+def test_the_cells_flop_counts(name, metric, count, flops):
+    """The counts the share of the peak reads in each cell, from its
+    configuration's family."""
+    c = Cell(name)
+    assert getattr(_metric(metric), count)(c.config, c.traffic) == flops

@@ -25,11 +25,13 @@ def _driver(name, config=None, traffic=None):
     ("dunet-crops256", {"precision": "float32"}, None),
     ("dunet-crops256", {"label_type": "boundary"}, None),
     ("dunet-crops256", {"loss": "smooth_l1"}, None),
+    ("dunet-crops256", {"family": "toy"}, None),
     ("dunet-tiled2048", None, {"infer": {"tta": True, "th_cell": 0.15}}),
     ("dunet-mish-gn-train-b4", {"optimizer": "adam"}, None),
     ("dunet-mish-gn-train-b4", {"loss": "ce"}, None),
     ("dunet-mish-gn-train-b4", {"precision": "float32"}, None),
     ("dunet-mish-gn-train-b4", None, {"label_type": "distance"}),
+    ("dunet-mish-gn-train-b4", {"family": "toy"}, None),
 ])
 def test_a_key_not_read_or_a_value_not_run_is_refused(name, config, traffic):
     with pytest.raises(ValueError):
@@ -48,6 +50,14 @@ def test_an_unknown_entry_is_refused():
         drivers.load("nothing_here")
     with pytest.raises(ValueError):
         drivers.load("../run")
+
+
+def test_an_unknown_family_is_refused():
+    from benchmark import families
+    with pytest.raises(ModuleNotFoundError):
+        families.load("nothing_here")
+    with pytest.raises(ValueError):
+        families.load("../run")
 
 
 def test_the_reference_refuses_what_it_does_not_train():

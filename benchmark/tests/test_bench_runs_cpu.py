@@ -11,10 +11,10 @@ import pytest
 import torch
 
 from benchmark import faults
-from benchmark.harness.common import ROOT
+from benchmark.harness.common import ROOT, benchmark_json
 from conftest import run_tiny, tiny
 
-CELLS = ["dunet-crops256", "dunet-tiled2048", "dunet-mish-gn-train-b4"]
+CELLS = [w["name"] for w in benchmark_json()["workloads"]]
 KEYS = {"correct", "attempted", "failed", "metrics", "device", "checks"}
 
 
