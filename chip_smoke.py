@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``microbeseg_torch``) on one GPU.
 
     python3 chip_smoke.py [--out results.json] [--profile-eval]
-                          [--train-quality]
+                          [--train-quality] [--flows-only]
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from ``microbeseg_torch/csrc`` (one nvcc per
@@ -207,10 +207,22 @@
    plain step stands beside that of two plain steps.  Times a bf16 step
    (forward + backward + Ranger) at batch 4 and 16 of 256^2 with the three
    policies in turns, with the peak memory of one step of each.
+18. Cellpose-SAM: F, ``follow_flows_kernel`` (``csrc/follow.cu``), alone at
+   2048^2 on a smooth random field's unit flows x 5 over half the frame
+   (~2.1M points, 200 steps), its end points against the plain
+   ``grid_sample`` loop's (held with step 3's kernels), timed beside that
+   loop and against its bound (operations: 44 float32 a point's step over
+   67 TFLOP/s); then the published widths through ``segment`` with
+   ``label_type="flows"`` on 4 frames of the benchmark's
+   ``cpsam_tiled2048`` mix with its seeded weights: ``follow_flows`` and
+   K3 launched, no fallback, the same masks on a second call, the masks
+   found against the cells drawn, and the device seconds of each span.
+   ``--flows-only`` builds ``follow.cu`` and ``cc.cu`` and runs only this.
 
 The next-to-last line of stdout is a JSON object with one entry per kernel.
 Its ``launches`` are those of the full-width paths' own runs (steps 4, 5, 7
-without the narrow model, 8, 9, 10, 11, 12, 13, 15, 16 and 17); what the side
+without the narrow model, 8, 9, 10, 11, 12, 13, 15, 16, 17 and 18's
+``segment``); what the side
 runs launched (K3 and the general K4 as the labelling function in step 4, the
 narrow model in step 7, step 14) stands apart as ``side_run_launches``.  Each wrapper's host enqueue time and
 the device time of every kernel it launches (``torch.profiler``) stand under
@@ -4253,6 +4265,126 @@ def gui_path(dev, report, model):
     return launches
 
 
+FP32_FLOPS_PER_S = 67e12    # H100 SXM, float32 outside the tensor cores
+# follow_flows_kernel's float32 operations a point's step (as
+# benchmark/metrics/follow_flows_roofline.py counts them)
+FOLLOW_OPS_PER_STEP = 44
+
+
+def check_follow(dev, report):
+    """F: ``follow_flows_kernel`` alone at 2048^2, against the plain
+    ``grid_sample`` loop (Cellpose's steps_interp) on the same points: a
+    smooth random field's unit flows x 5 (as a network's dP) over the upper
+    half of the field, some 2M points, 200 steps.  The end points (cast to
+    integers) must agree on all but a few points: the kernel and grid_sample
+    round the same float32 expressions, not always in the same order."""
+    from microbeseg_torch.ops import flows
+
+    side, niter = 2048, 200
+    g = torch.Generator(device=dev).manual_seed(0)
+    t = torch.arange(-18, 19, device=dev, dtype=torch.float32)
+    k = torch.exp(-t * t / 72.0)
+    k = k / k.sum()
+    s = torch.randn(1, 1, side, side, generator=g, device=dev)
+    s = torch.nn.functional.conv2d(s, k.view(1, 1, -1, 1), padding=(18, 0))
+    s = torch.nn.functional.conv2d(s, k.view(1, 1, 1, -1), padding=(0, 18))
+    s = s[0, 0]
+    gy, gx = torch.gradient(s)
+    mag = torch.sqrt(gy * gy + gx * gx) + 1e-12
+    dP = 5.0 * torch.stack([gy, gx]) / mag
+    fg = s > s.median()
+    idx = torch.nonzero(fg.reshape(-1)).squeeze(1)
+    n = idx.numel()
+    field = flows._field(dP, fg)
+    pts = flows.start_points(idx, side, side)
+    got = flows.follow_flows(dP, fg, idx, niter)
+    want = flows.end_pixels(flows.follow_plain(field, pts, niter), side, side)
+    differ = (got != want).any(dim=1)
+    max_err = int((got - want).abs().max())
+    if float(differ.float().mean()) > 1e-3:
+        raise AssertionError(f"follow_flows: {int(differ.sum())} of {n} end "
+                             f"points differ from the plain loop")
+    ms = cuda_ms(lambda: flows._follow_kernel(field, pts, niter), reps=10)
+    call_ms = cuda_ms(lambda: flows.follow_flows(dP, fg, idx, niter), reps=5)
+    plain_ms = cuda_ms(lambda: flows.follow_plain(field, pts, niter), reps=2,
+                       warmup=1)
+    b = bound(side * side * 8 + n * 16, n * niter * FOLLOW_OPS_PER_STEP,
+              FP32_FLOPS_PER_S)
+    r = dict(source="csrc/follow.cu: follow_flows_kernel",
+             replaces="none (Cellpose's steps_interp: one grid_sample and "
+             "two clamps a step)", max_abs_err=max_err, ms=ms,
+             plain_ms=plain_ms, library_ms=plain_ms, call_ms=call_ms,
+             points=n, steps=niter, points_differ=int(differ.sum()),
+             roofline_pct=100.0 * b["bound_ms"] / ms, **b)
+    report.setdefault("kernels", {})["follow_flows"] = r
+    print(f"F follow_flows_kernel at {side}^2, {n} points x {niter} steps: "
+          f"{ms:.3f} ms (whole call {call_ms:.3f} ms), plain grid_sample "
+          f"loop {plain_ms:.2f} ms, bound {b['bound_ms']:.3f} ms "
+          f"({b['bound_by']}), {r['roofline_pct']:.1f}% of it; end points "
+          f"differing {r['points_differ']}, max {max_err} px", flush=True)
+
+
+def flows_path(dev, report):
+    """Cellpose-SAM at its published widths through ``InferenceEngine.
+    segment(label_type="flows")`` on 2048^2 frames of the benchmark's
+    cpsam_tiled2048 mix (tiles of 256, overlap 56, 16 a forward), with the
+    benchmark's seeded weights: the launches (follow_flows and K3, no
+    fallback), the masks found against the cells drawn, a stack's seconds
+    and the device seconds by stage of the port's spans."""
+    from benchmark.families import cellpose_sam as fam
+    from benchmark.harness import gen
+    from microbeseg_torch.config import CellposeSAMConfig, InferConfig
+    from microbeseg_torch.inference.engine import InferenceEngine
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models.vit_sam import build_cellpose_sam
+    from microbeseg_torch.utils import profiling
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    mix = json.loads(Path("benchmark/traffic/cpsam_tiled2048.json")
+                     .read_text())
+    frames = gen.frames(mix, 7, 4, dev)
+    cells = gen.object_counts(mix, 4, gen.generator(7, 1, dev)).tolist()
+    with torch.device(dev):
+        model = build_cellpose_sam(CellposeSAMConfig())
+    model.load_state_dict(fam.make_weights(fam.PUBLISHED, 7, dev))
+    engine = InferenceEngine(model, "flows", cfg=InferConfig(**mix["infer"]),
+                             device=dev)
+    engine.segment(frames[:1])
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    masks = engine.segment(frames)
+    seg_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    require_launches(launches, ["follow_flows", "connected_components"],
+                     "the flows path")
+    if launches["follow_flows_fallback"] or launches["flood_tiled"]:
+        raise AssertionError(f"flows path launches: {launches}")
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        again = engine.segment(frames)
+    spans = profiling.summary()
+    if not np.array_equal(again, masks):
+        raise AssertionError("flows path: a second call gave other masks")
+    found = [int(m.max()) for m in masks]
+    out = dict(launches={k: v for k, v in launches.items() if v},
+               frames=len(frames), seconds=seg_s,
+               mpx_per_s=masks.size / 1e6 / seg_s, cells_drawn=cells,
+               masks_found=found,
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               device_s={k: v["device_s"] for k, v in spans["spans"].items()},
+               counters=spans["counters"],
+               phase_s=time.perf_counter() - t_phase)
+    report["flows_path"] = out
+    print(f"flows path: {len(frames)} frames of 2048^2 in {seg_s:.2f} s "
+          f"({out['mpx_per_s']:.1f} Mpx/s), masks {found} for cells drawn "
+          f"{cells}; device s by span {out['device_s']}; counters "
+          f"{out['counters']}; launches {out['launches']}; peak "
+          f"{out['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -4263,6 +4395,9 @@ def main() -> int:
     ap.add_argument("--train-quality", action="store_true",
                     help="also train the flagship 60 epochs on the "
                     "glutamicum split and score AJI+ on frames 40-49")
+    ap.add_argument("--flows-only", action="store_true",
+                    help="build follow.cu and cc.cu and run only F and the "
+                    "Cellpose-SAM flows path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4274,8 +4409,21 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    logs = _build.build_all(("follow", "cc") if args.flows_only
+                            else _build.SOURCES)
     report["build_s"] = time.perf_counter() - t0
+    report["ptxas_follow"] = ptxas_report(logs.get("follow", ""),
+                                          "follow_flows_kernel")
+    print(f"ptxas, follow_flows_kernel: {report['ptxas_follow']}",
+          flush=True)
+    if args.flows_only:
+        check_follow(dev, report)
+        flows_path(dev, report)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(report, indent=1))
+        print(json.dumps({"ok": True, "flows_only": True}))
+        return 0
     report["ptxas"] = {k: [ln for ln in v.splitlines() if "Used" in ln]
                        for k, v in logs.items()}
     report["ptxas_k3"] = ptxas_report(logs.get("cc", ""), "cc_tile_kernel")
@@ -4283,6 +4431,7 @@ def main() -> int:
     print(f"built {sorted(logs)} in {report['build_s']:.1f} s", flush=True)
 
     check_kernels(dev, report)
+    check_follow(dev, report)
     report["stream_handle_us"] = stream_handle_us(dev)
     print(f"stream handle for a launch, host us: "
           f"{report['stream_handle_us']}", flush=True)
@@ -4303,6 +4452,7 @@ def main() -> int:
     dp_launches = dp_path(dev, report, model)
     gui_launches = gui_path(dev, report, model)
     remat_launches = remat_path(dev, report)
+    flows_launches = flows_path(dev, report)
     report["total_s"] = time.perf_counter() - t0
     # launches: those of the full-width paths' own runs (crop, tiled frame,
     # int8 crop, int8 tiled frame, inference CLI, evaluation, labels), each
@@ -4311,7 +4461,7 @@ def main() -> int:
     driven = [crop_launches, big_launches, *int8_launches, cli_launches,
               serve_launches, store_launches, crop_gen_launches,
               eval_launches, label_launches, train_launches, dp_launches,
-              gui_launches, remat_launches]
+              gui_launches, remat_launches, flows_launches]
     launches = {k: sum(d[k] for d in driven) for k in _build.LAUNCHES}
     if launches["watershed_route"]:
         raise AssertionError("the watershed route ran on a main path")
@@ -4320,7 +4470,7 @@ def main() -> int:
     report["launches_by_path"] = dict(zip(
         ("crops", "frames", "int8_crops", "int8_frame", "cli", "serve",
          "store", "crop_generator", "eval", "labels", "train", "dp",
-         "gui", "remat"), driven))
+         "gui", "remat", "flows"), driven))
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[name],
                     side_run_launches=side[name],
@@ -4336,7 +4486,8 @@ def main() -> int:
                            "steps_per_image", "us_per_step", "sides",
                            "setup_ms", "setup_and_levels_ms",
                            "empty_step_us", "steps", "sizes",
-                           "planes_ms")})
+                           "planes_ms", "call_ms", "points",
+                           "points_differ", "roofline_pct")})
                for name, r in report["kernels"].items()]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

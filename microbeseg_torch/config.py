@@ -78,6 +78,39 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class CellposeSAMConfig:
+    """Architecture of Cellpose-SAM (Pachitariu, Rariden & Stringer 2025;
+    MouseLand/cellpose ``cellpose/vit_sam.py::Transformer``): SAM's ViT-L
+    image encoder with patches of 8 px, global attention with decomposed
+    relative positions in every block, SAM's neck, and a readout of
+    ``nout`` fields (dY, dX, cell probability) through a 1x1 convolution
+    and a pixel shuffle.  The defaults are the published values."""
+
+    embed_dim: int = 1024
+    depth: int = 24
+    num_heads: int = 16
+    mlp_dim: int = 4096
+    patch_size: int = 8
+    img_size: int = 256
+    neck_dim: int = 256
+    nout: int = 3
+    ch_in: int = 3
+
+    def __post_init__(self):
+        if self.embed_dim % self.num_heads:
+            raise ValueError(f"embed_dim {self.embed_dim} is not a multiple "
+                             f"of num_heads {self.num_heads}")
+        if self.img_size % self.patch_size:
+            raise ValueError(f"img_size {self.img_size} is not a multiple "
+                             f"of patch_size {self.patch_size}")
+
+    @property
+    def grid(self) -> int:
+        """Tokens along each side of an input."""
+        return self.img_size // self.patch_size
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters as recorded in the sidecar."""
 
@@ -124,7 +157,16 @@ class InferConfig:
     # test-time augmentation: average over the shape-preserving dihedral
     # transforms (4 flips, all 8 of D4 on square inputs)
     tta: bool = False
-
+    # the flows post-processing (label_type "flows"), Cellpose 4's
+    # defaults (cellpose/dynamics.py::compute_masks): Euler steps a
+    # foreground pixel takes, the cell-probability threshold, the largest
+    # mean squared flow error a mask keeps, the smallest mask, and the
+    # largest mask as a share of the frame
+    niter: int = 200
+    cellprob_threshold: float = 0.0
+    flow_threshold: float = 0.4
+    min_size: int = 15
+    max_size_fraction: float = 0.4
 
 
 @dataclass(frozen=True)

@@ -15,6 +15,16 @@ the (D)U-Net in batches (bf16 autocast on CUDA) on one of two paths:
 Predictions scale back up to the frame, are post-processed on the device
 (distance or boundary method), and only uint16 masks come back.
 
+With ``label_type="flows"`` the network is Cellpose-SAM
+(``models/vit_sam.py``): each frame is normalised by its 1st and 99th
+percentiles (Cellpose's ``normalize99``), every frame takes the tiled path
+with tiles of the network's input size (a smaller frame is padded with 0),
+the one-channel tiles fill input channel 0 of the network's three, the
+three output fields (dY, dX, cell probability) are stitched as the
+boundary path stitches its three, and Cellpose's flow dynamics
+(``ops/flows.py``) make the masks.  Test-time augmentation, int8 and
+scaling are refused there.
+
 With ``InferConfig.quantize`` the large-spatial 3x3 convolutions take their
 int8 path (``models.blocks.QuantConv``, kernel K5).  Their activation scales
 are calibrated once per padded shape, on the first frames or tiles of that
@@ -52,6 +62,7 @@ from microbeseg_torch.models.blocks import ConvBlock, QuantConv
 from microbeseg_torch.models.io import load_model
 from microbeseg_torch.models.unet import set_quantize
 from microbeseg_torch.ops.augment import clahe
+from microbeseg_torch.ops.flows import flows_postprocessing
 from microbeseg_torch.ops.postprocessing import (
     boundary_postprocessing,
     distance_postprocessing,
@@ -66,6 +77,24 @@ from microbeseg_torch.utils.profiling import span
 
 # numpy dtypes that upload as they are; anything else goes up as float32
 _UPLOAD_DTYPES = frozenset(("uint8", "int16", "int32", "float32"))
+
+
+def _normalize99(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) float32 -> (x - p1) / (p99 - p1) per frame with its 1st
+    and 99th percentiles (linear between order statistics, as
+    ``np.percentile``), or 0 where they lie within 1e-3 (Cellpose's
+    ``normalize99``)."""
+    s = torch.sort(x.reshape(x.shape[0], -1), dim=1).values
+    n = s.shape[1]
+    p = []
+    for q in (0.01, 0.99):
+        pos = q * (n - 1)
+        i = int(pos)
+        j = min(i + 1, n - 1)
+        p.append(s[:, i] + (s[:, j] - s[:, i]) * (pos - i))
+    lo, d = p[0][:, None, None], (p[1] - p[0])[:, None, None]
+    return torch.where(d > 1e-3, (x - lo) / torch.where(d > 1e-3, d, 1.0),
+                       torch.zeros_like(x))
 
 
 class InferenceEngine:
@@ -90,6 +119,8 @@ class InferenceEngine:
                              "(per-member activation calibration is not "
                              "implemented)")
         self.label_type = label_type
+        if label_type == "flows":
+            self._check_flows(model)
         # padded (h, w) shapes whose calibration pass has run: larger frames
         # quantise more layers, so each shape calibrates once.  None: the
         # engine runs no int8 layer
@@ -114,6 +145,24 @@ class InferenceEngine:
         self.max_seeds = max_seeds
         # out-of-memory fallbacks taken (zero predictions / masks)
         self.oom_count = 0
+
+    def _check_flows(self, model: torch.nn.Module) -> None:
+        """Refuse settings the flows path does not run: its tiles are the
+        network's input size, and flows neither flip with TTA nor scale."""
+        size = getattr(getattr(model, "cfg", None), "img_size", None)
+        if size is None:
+            raise ValueError("label_type 'flows' needs a Cellpose-SAM model "
+                             "(models/vit_sam.py)")
+        cfg = self.cfg
+        if cfg.tile_size != size:
+            raise ValueError(f"label_type 'flows': tile_size must be the "
+                             f"network's input size {size}, got "
+                             f"{cfg.tile_size}")
+        bad = [k for k, v in (("tta", cfg.tta), ("quantize", cfg.quantize),
+                              ("scale_factor", cfg.scale_factor != 1))
+               if v]
+        if bad:
+            raise ValueError(f"label_type 'flows' does not run {bad}")
 
     @classmethod
     def from_checkpoint(cls, model_path: Union[str, Path],
@@ -304,6 +353,8 @@ class InferenceEngine:
             mn = x.amin(dim=(1, 2), keepdim=True)
             mx = x.amax(dim=(1, 2), keepdim=True)
             x = clahe((x - mn) / torch.clamp(mx - mn, min=1e-7)) * 65535.0
+        if self.label_type == "flows":
+            return _normalize99(x)
         mn = x.amin(dim=(1, 2), keepdim=True)
         mx = x.amax(dim=(1, 2), keepdim=True)
         denom = mx - mn
@@ -328,29 +379,37 @@ class InferenceEngine:
                    pw: int, tile: int, pos) -> torch.Tensor:
         """Raw (b, H, W) frames -> their normalised tiles (b, n, tile,
         tile); a frame with a side below the tile is padded down-right with
-        -1 first."""
+        the normalised minimum first (-1; 0 for flows)."""
         norm = self._prep(raw, sh, sw)
         if ph or pw:
-            norm = torch.nn.functional.pad(norm, (0, pw, 0, ph), value=-1.0)
+            low = 0.0 if self.label_type == "flows" else -1.0
+            norm = torch.nn.functional.pad(norm, (0, pw, 0, ph), value=low)
         return extract_tiles_device(norm, tile, pos)
 
     def _net_apply(self, x: torch.Tensor, models: Sequence[torch.nn.Module]
                    ) -> Tuple[torch.Tensor, ...]:
         """Model application on normalised, padded (B, H, W, 1) input:
         distance -> (border, cell) each (B, H, W); boundary -> (softmax
-        probs (B, H, W, 3),).  Ensemble members average head-wise; with
-        ``cfg.tta`` predictions also average over the 4 flips, or all 8
-        dihedral transforms when H == W (both heads are scalar fields, so
-        inverse-mapping and averaging is exact).  ``models``: the members
+        probs (B, H, W, 3),); flows -> ((dY, dX, cell probability) (B, H,
+        W, 3),), the input in channel 0 of the network's.  Ensemble
+        members average head-wise; with ``cfg.tta`` predictions also
+        average over the 4 flips, or all 8 dihedral transforms when H == W
+        (both heads are scalar fields, so inverse-mapping and averaging is
+        exact).  ``models``: the members
         on ``x``'s device."""
         def base(xv):
             acc = None
             for model in models:
-                preds = model(xv)
-                if self.label_type == "distance":
+                if self.label_type == "flows":
+                    xin = torch.nn.functional.pad(
+                        xv.permute(0, 3, 1, 2),
+                        (0, 0, 0, 0, 0, model.cfg.ch_in - 1))
+                    out = [model(xin).permute(0, 2, 3, 1).contiguous()]
+                elif self.label_type == "distance":
+                    preds = model(xv)
                     out = [preds[0][..., 0], preds[1][..., 0]]
                 else:
-                    out = [torch.softmax(preds, dim=-1)]
+                    out = [torch.softmax(model(xv), dim=-1)]
                 acc = out if acc is None else [a + b for a, b in zip(acc, out)]
             return [a / len(models) for a in acc]
 
@@ -428,6 +487,8 @@ class InferenceEngine:
         frames = np.asarray(frames)
         if frames.ndim == 2:
             frames = frames[None]
+        if self.label_type == "flows":
+            return self._predict_tiled(frames)
         sh, sw = self._scaled_hw(*frames.shape[1:])
         try:
             th, tw = pad_bucket_shape(sh, sw)
@@ -547,7 +608,8 @@ class InferenceEngine:
     def postprocess(self, preds: Tuple[torch.Tensor, ...], th_cell: float,
                     th_seed: float) -> np.ndarray:
         """Device predictions of T frames (distance: (border, cell);
-        boundary: (probs,)) -> (T, H, W) uint16 masks, in device batches
+        boundary: (probs,); flows: ((dY, dX, cell probability),)) -> (T, H,
+        W) uint16 masks, in device batches
         (one frame at a time at 2048^2; under a mesh, each device its
         share of a batch).  Out-of-memory gives zero masks for the batch,
         counted."""
@@ -561,6 +623,11 @@ class InferenceEngine:
                 if self.label_type == "distance":
                     m = distance_postprocessing(chunk[0], chunk[1], th_seed,
                                                 th_cell, max_seeds=cap)
+                elif self.label_type == "flows":
+                    m = torch.stack([
+                        flows_postprocessing(f[..., :2].permute(2, 0, 1),
+                                             f[..., 2], self.cfg)
+                        for f in chunk[0]])
                 else:
                     m = boundary_postprocessing(chunk[0], max_seeds=cap)
             with span("mseg.segment.download"):

@@ -31,7 +31,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flood", "flood_frame", "cc", "matmul", "epilogue")
+SOURCES = ("flood", "flood_frame", "cc", "matmul", "epilogue", "follow")
 
 # launches per kernel wrapper (plain integers; reset with reset_launches)
 LAUNCHES: Dict[str, int] = {"flood_packed": 0, "flood_packed_cluster": 0,
@@ -48,7 +48,11 @@ LAUNCHES: Dict[str, int] = {"flood_packed": 0, "flood_packed_cluster": 0,
                             "conv_epilogue_fallback": 0,
                             # not a kernel: the plain watershed flood taken
                             # for labels the packed key cannot carry
-                            "watershed_route": 0}
+                            "watershed_route": 0,
+                            # the flows post-processing's Euler steps
+                            # (csrc/follow.cu), and its plain grid_sample
+                            # loop where that ran on the card
+                            "follow_flows": 0, "follow_flows_fallback": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # an engine on a mesh launches from one host thread per device

@@ -15,6 +15,19 @@ flax ``.ckpt`` writer, and the export is the model's ``state_dict``.  The
 A ``module.`` prefix (reference DataParallel checkpoints, unets.py:60-78)
 is stripped.  The ``.pth`` is read with ``torch.load(weights_only=True)``,
 which unpickles tensors and containers only.
+
+``cellpose_sam_from_state_dict`` takes a Cellpose-SAM state dict under its
+published names (``encoder.patch_embed.proj.*``, ``encoder.pos_embed``,
+``encoder.blocks.{i}.{norm1, attn.qkv, attn.proj, attn.rel_pos_h,
+attn.rel_pos_w, norm2, mlp.lin1, mlp.lin2}.*``, ``encoder.neck.{0,1,2,3}.*``,
+``out.*``, ``W2``; MouseLand/cellpose ``cellpose/vit_sam.py``), which are
+the port's own names (``models/vit_sam.py``).  The published ``cpsam``
+file keeps 127-row relative-position tables in SAM's 4 global blocks and
+27-row ones in the others, and Cellpose interpolates them to 2G - 1 rows at
+each call (SAM's ``get_rel_pos``); the import does that interpolation
+once.  ``W2``, the fixed identity that Cellpose's readout multiplies by,
+must be that identity, and is dropped: the port writes it as a pixel
+shuffle.
 """
 
 from __future__ import annotations
@@ -24,10 +37,13 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-from microbeseg_torch.config import ModelConfig, TrainConfig, read_sidecar
+from microbeseg_torch.config import (CellposeSAMConfig, ModelConfig,
+                                     TrainConfig, read_sidecar)
 from microbeseg_torch.models.io import load_model, save_checkpoint, write_sidecar
 from microbeseg_torch.models.unet import build_unet
+from microbeseg_torch.models.vit_sam import CellposeSAM, build_cellpose_sam
 from microbeseg_torch.utils.device import resolve_device
 
 
@@ -84,3 +100,52 @@ def export_torch_checkpoint(ckpt_path: Path, out_dir: Path,
         ckpt_path.with_suffix("").parent / f"{stem}.json")
     (out_dir / f"{stem}.json").write_text(json.dumps(sidecar, indent=2))
     return pth
+
+
+def rel_pos_resized(rel_pos: torch.Tensor, rows: int) -> torch.Tensor:
+    """A (n, c) relative-position table at ``rows`` rows: SAM's
+    ``get_rel_pos`` interpolation (linear, ``align_corners=False``)."""
+    if rel_pos.shape[0] == rows:
+        return rel_pos
+    t = F.interpolate(rel_pos.float().reshape(1, rel_pos.shape[0], -1)
+                      .permute(0, 2, 1), size=rows, mode="linear")
+    return t.reshape(-1, rows).permute(1, 0).to(rel_pos.dtype)
+
+
+def cellpose_sam_from_state_dict(state_dict: dict,
+                                 cfg: CellposeSAMConfig = CellposeSAMConfig()
+                                 ) -> CellposeSAM:
+    """A Cellpose-SAM state dict under the published names -> the port's
+    model of ``cfg`` on the CPU.  Refuses a ``pos_embed`` or patch kernel
+    of another size, a ``W2`` that is not the identity readout, and any
+    missing, extra or misshapen key."""
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in state_dict.items()}
+    model = build_cellpose_sam(cfg)
+    want = model.state_dict()
+    for key in ("encoder.pos_embed", "encoder.patch_embed.proj.weight"):
+        if key in sd and tuple(sd[key].shape) != tuple(want[key].shape):
+            raise ValueError(f"{key} of shape {tuple(sd[key].shape)}: this "
+                             f"configuration takes {tuple(want[key].shape)}")
+    w2 = sd.pop("W2", None)
+    n, p = cfg.nout, cfg.patch_size
+    eye = torch.eye(n * p * p).reshape(n * p * p, n, p, p)
+    if w2 is None or tuple(w2.shape) != tuple(eye.shape) \
+            or not torch.equal(w2.float().cpu(), eye):
+        raise ValueError("W2 must be the identity readout of shape "
+                         f"{tuple(eye.shape)}")
+    rows = 2 * cfg.grid - 1
+    for k in list(sd):
+        if k.endswith(("attn.rel_pos_h", "attn.rel_pos_w")):
+            sd[k] = rel_pos_resized(sd[k], rows)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def load_cellpose_sam(pth_path: Path,
+                      cfg: CellposeSAMConfig = CellposeSAMConfig(),
+                      device=None) -> CellposeSAM:
+    """Cellpose-SAM from a ``torch.save`` of its state dict (the published
+    ``cpsam`` file), on ``device`` (the CUDA card unless ``"cpu"``)."""
+    sd = torch.load(pth_path, map_location="cpu", weights_only=True)
+    return cellpose_sam_from_state_dict(sd, cfg).to(resolve_device(device))

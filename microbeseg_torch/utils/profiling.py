@@ -13,12 +13,16 @@ src/training/train.py:432,448,552-557).  Here the port records, while a
   when ``summary`` is read);
 - ``count_steps``: the dependent steps of each marker-flood launch, per
   kernel route (the names of ``kernels/_build.LAUNCHES``), read from the
-  kernel's own step counts when ``summary`` is read.
+  kernel's own step counts when ``summary`` is read;
+- ``count``: a plain tally known on the host, summed per name (the flows
+  post-processing's ``flow_points``, the points its Euler steps follow,
+  and ``qc_iterations``, the diffusion steps of its flow check).
 
 With no profiler recording, ``span`` returns one shared no-op context after
-a single flag check and ``count_steps`` returns at once: nothing is
-allocated or kept.  ``device_trace`` records a block into ``trace.json``
-(``chrome://tracing``, Perfetto) and the summary into ``spans.json``.
+a single flag check and ``count_steps`` and ``count`` return at once:
+nothing is allocated or kept.  ``device_trace`` records a block into
+``trace.json`` (``chrome://tracing``, Perfetto) and the summary into
+``spans.json``.
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ _LOCAL = threading.local()
 _SPANS: Dict[str, list] = {}
 # kernel route -> [steps, [(steps_out, how)]]
 _STEPS: Dict[str, list] = {}
+# tally name -> sum
+_COUNTS: Dict[str, int] = {}
 
 
 class _Span:
@@ -109,6 +115,14 @@ def count_steps(kernel: str, steps_out: torch.Tensor, how: str) -> None:
         _STEPS.setdefault(kernel, [0, []])[1].append((steps_out, how))
 
 
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the tally ``name`` while a profiler is recording."""
+    if not _profiler._is_profiler_enabled:
+        return
+    with _LOCK:
+        _COUNTS[name] = _COUNTS.get(name, 0) + int(n)
+
+
 def _resolve() -> None:
     """Fold the pending events and step counts into numbers (the caller
     holds ``_LOCK``)."""
@@ -126,16 +140,18 @@ def _resolve() -> None:
 
 def summary() -> Dict[str, dict]:
     """``{"spans": {name: {count, host_s, self_s, device_s}}, "counters":
-    {"flood_steps": {route: steps}}}`` of everything recorded since the
-    last ``reset``; ``device_s`` is None where no CUDA event was recorded
-    (CUDA not in use)."""
+    {"flood_steps": {route: steps}, tally: sum}}`` of everything recorded
+    since the last ``reset``; ``device_s`` is None where no CUDA event was
+    recorded (CUDA not in use)."""
     with _LOCK:
         _resolve()
         spans = {name: {"count": r[0], "host_s": r[1], "self_s": r[2],
                         "device_s": r[3]} for name, r in _SPANS.items()}
         steps = {kernel: r[0] for kernel, r in _STEPS.items()}
-    return {"spans": spans, "counters": {"flood_steps": steps} if steps
-            else {}}
+        counters = dict(_COUNTS)
+    if steps:
+        counters["flood_steps"] = steps
+    return {"spans": spans, "counters": counters}
 
 
 def reset() -> None:
@@ -143,6 +159,7 @@ def reset() -> None:
     with _LOCK:
         _SPANS.clear()
         _STEPS.clear()
+        _COUNTS.clear()
 
 
 @contextlib.contextmanager

@@ -711,3 +711,38 @@ def test_dunet_eval_forward_takes_the_fused_epilogue(dev):
             model.train()(x)
         assert _build.LAUNCHES["conv_epilogue"] == 0
         assert _build.LAUNCHES["conv_epilogue_fallback"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,niter", [((256, 256), 200), ((1000, 1400), 60),
+                                         ((2048, 2048), 200), ((7, 300), 5)])
+def test_follow_flows_kernel_matches_plain(dev, shape, niter):
+    """``follow_flows_kernel`` against the plain ``grid_sample`` loop on
+    the same points: a smooth random field's unit flows x 5 (some of them
+    running off the frame, where the clamp holds them) over the upper half
+    of the field.  The two round the same float32 expressions, not always
+    in the same order, so a few end points in 1000 may differ."""
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.ops import flows
+
+    H, W = shape
+    g = torch.Generator(device=dev).manual_seed(H + W)
+    s = torch.randn(1, 1, H, W, generator=g, device=dev)
+    k = torch.ones(1, 1, 5, 5, device=dev) / 25
+    for _ in range(3):
+        s = torch.nn.functional.conv2d(s, k, padding=2)
+    s = s[0, 0]
+    gy, gx = torch.gradient(s)
+    dP = 5.0 * torch.stack([gy, gx]) / (torch.sqrt(gy * gy + gx * gx)
+                                        + 1e-12)
+    fg = s > s.median()
+    idx = torch.nonzero(fg.reshape(-1)).squeeze(1)
+    before = dict(_build.LAUNCHES)
+    got = flows.follow_flows(dP, fg, idx, niter)
+    want = flows.end_pixels(flows.follow_plain(
+        flows._field(dP, fg), flows.start_points(idx, H, W), niter), H, W)
+    assert _build.LAUNCHES["follow_flows"] == before["follow_flows"] + 1
+    assert (_build.LAUNCHES["follow_flows_fallback"]
+            == before["follow_flows_fallback"] + 1)
+    differ = (got != want).any(dim=1)
+    assert float(differ.float().mean()) <= 1e-3
