@@ -217,7 +217,16 @@
    ``cpsam_tiled2048`` mix with its seeded weights: ``follow_flows`` and
    K3 launched, no fallback, the same masks on a second call, the masks
    found against the cells drawn, and the device seconds of each span.
-   ``--flows-only`` builds ``follow.cu`` and ``cc.cu`` and runs only this.
+   ``--flows-only`` builds ``follow.cu``, ``cc.cu`` and
+   ``rel_attention.cu`` and runs only this and step 19.
+19. Cellpose-SAM's attention: A, ``rel_attention_kernel``
+   (``csrc/rel_attention.cu``), at the cell's shape (16 tiles of 1,024
+   tokens, 16 heads of 64) from a qkv tensor in the projection's layout,
+   against the plain path in float32 (the block's ``rel_pos_bias`` and an
+   explicit softmax) and against the path it replaced (the bias built by
+   ``rel_pos_bias`` in bf16, then ``scaled_dot_product_attention``), each
+   timed beside its bound (operations: the two products over 989
+   TFLOP/s).  The flows path of step 18 must launch it, 24 times a forward.
 
 The next-to-last line of stdout is a JSON object with one entry per kernel.
 Its ``launches`` are those of the full-width paths' own runs (steps 4, 5, 7
@@ -234,6 +243,7 @@ exits non-zero before the result lines.  Without CUDA it exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import itertools
 import json
 import re
@@ -4324,6 +4334,84 @@ def check_follow(dev, report):
           f"differing {r['points_differ']}, max {max_err} px", flush=True)
 
 
+TENSOR_FLOPS_PER_S = 989e12   # H100 SXM, bf16 tensor cores, dense
+
+
+def check_rel_attention(dev, report):
+    """A: ``rel_attention_kernel`` at the cell's shape against the float32
+    plain path and the path it replaced (``library_ms``: the bf16 bias of
+    ``rel_pos_bias``, then ``scaled_dot_product_attention``, which the port
+    no longer calls), each timed; the bound counts the two products
+    (operations) and q, k, v and the output once (bytes)."""
+    import torch.nn.functional as F
+
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models import vit_sam
+    from microbeseg_torch.ops.kernels import rel_attention as ra
+
+    B, heads, g, hd = 16, 16, 32, 64
+    n = g * g
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qkv = (0.5 * torch.randn(B, n, 3 * heads * hd, generator=gen,
+                             device=dev)).to(torch.bfloat16)
+    th, tw = (0.5 * torch.randn(2 * g - 1, hd, generator=gen, device=dev)
+              for _ in range(2))
+    q, k, v = ra.split_heads(qkv, heads)
+
+    def replaced():
+        bias = vit_sam.rel_pos_bias(q, th, tw, g)
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+        return out.transpose(1, 2).reshape(B, n, heads * hd)
+
+    with torch.inference_mode():
+        got = ra.rel_attention(qkv, th, tw, heads, g)
+        want = ra.rel_attention_plain(qkv.float(), th, tw, heads, g)
+        old = replaced()
+        err = (got.float() - want).abs()
+        old_err = (old.float() - want).abs()
+        rms = float(want.pow(2).mean().sqrt())
+        if float(err.pow(2).mean().sqrt()) > 0.01 * rms:
+            raise AssertionError(f"rel_attention: RMS error "
+                                 f"{float(err.pow(2).mean().sqrt())} of "
+                                 f"RMS {rms}")
+        times = {"ms": [], "library_ms": []}
+        for name in ("ms", "library_ms", "library_ms", "ms"):
+            fn = (lambda: ra.rel_attention(qkv, th, tw, heads, g)) \
+                if name == "ms" else replaced
+            times[name].append(cuda_ms(fn, reps=20))
+        plain_ms = cuda_ms(lambda: ra.rel_attention_plain(
+            qkv.float(), th, tw, heads, g), reps=3, warmup=1)
+        bias = vit_sam.rel_pos_bias(q, th, tw, g)
+        sdpa_alone_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias), reps=20)
+    lib = _build.load("rel_attention")
+    lib.rel_attention_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    shared = lib.rel_attention_shared_bytes(hd, g)
+    maps = B * heads
+    b = bound(maps * 8 * n * hd, maps * 4 * n * n * hd, TENSOR_FLOPS_PER_S)
+    ms, library_ms = min(times["ms"]), min(times["library_ms"])
+    r = dict(source="csrc/rel_attention.cu: rel_attention_kernel",
+             replaces="none (the JAX package has no vision transformer); "
+             "the port's bias by rel_pos_bias and cuDNN's attention",
+             shape=[B, heads, n, hd], max_abs_err=float(err.max()),
+             rms_err=float(err.pow(2).mean().sqrt()), rms=rms,
+             library_max_abs_err=float(old_err.max()),
+             library_rms_err=float(old_err.pow(2).mean().sqrt()),
+             ms=ms, turns=times, plain_ms=plain_ms, library_ms=library_ms,
+             sdpa_alone_ms=sdpa_alone_ms,
+             roofline_pct=100.0 * b["bound_ms"] / ms, shared_bytes=shared,
+             ptxas=report.get("ptxas_rel_attention", []), **b)
+    report.setdefault("kernels", {})["rel_attention"] = r
+    print(f"A rel_attention_kernel at {B} x {heads} maps of {n} tokens, "
+          f"head {hd}: {ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}), {r['roofline_pct']:.1f}% of it; the path it "
+          f"replaced {library_ms:.4f} ms (bias + SDPA; SDPA alone "
+          f"{sdpa_alone_ms:.4f}); plain {plain_ms:.3f} ms; RMS error "
+          f"{r['rms_err']:.3g} against {r['library_rms_err']:.3g} of the "
+          f"replaced path (output RMS {rms:.3g}); max {r['max_abs_err']:.3g}; "
+          f"{shared} bytes of shared memory a block", flush=True)
+
+
 def flows_path(dev, report):
     """Cellpose-SAM at its published widths through ``InferenceEngine.
     segment(label_type="flows")`` on 2048^2 frames of the benchmark's
@@ -4357,8 +4445,12 @@ def flows_path(dev, report):
     masks = engine.segment(frames)
     seg_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    require_launches(launches, ["follow_flows", "connected_components"],
-                     "the flows path")
+    require_launches(launches, ["follow_flows", "connected_components",
+                                "rel_attention"], "the flows path")
+    if launches["rel_attention"] % 24:
+        raise AssertionError(f"flows path: rel_attention launched "
+                             f"{launches['rel_attention']} times, not 24 a "
+                             "forward")
     if launches["follow_flows_fallback"] or launches["flood_tiled"]:
         raise AssertionError(f"flows path launches: {launches}")
     profiling.reset()
@@ -4396,8 +4488,8 @@ def main() -> int:
                     help="also train the flagship 60 epochs on the "
                     "glutamicum split and score AJI+ on frames 40-49")
     ap.add_argument("--flows-only", action="store_true",
-                    help="build follow.cu and cc.cu and run only F and the "
-                    "Cellpose-SAM flows path")
+                    help="build follow.cu, cc.cu and rel_attention.cu and "
+                    "run only F, A and the Cellpose-SAM flows path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4409,15 +4501,20 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     t0 = time.perf_counter()
-    logs = _build.build_all(("follow", "cc") if args.flows_only
-                            else _build.SOURCES)
+    logs = _build.build_all(("follow", "cc", "rel_attention")
+                            if args.flows_only else _build.SOURCES)
     report["build_s"] = time.perf_counter() - t0
     report["ptxas_follow"] = ptxas_report(logs.get("follow", ""),
                                           "follow_flows_kernel")
     print(f"ptxas, follow_flows_kernel: {report['ptxas_follow']}",
           flush=True)
+    report["ptxas_rel_attention"] = ptxas_report(
+        logs.get("rel_attention", ""), "rel_attention_kernel")
+    print(f"ptxas, rel_attention_kernel: {report['ptxas_rel_attention']}",
+          flush=True)
     if args.flows_only:
         check_follow(dev, report)
+        check_rel_attention(dev, report)
         flows_path(dev, report)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -4432,6 +4529,7 @@ def main() -> int:
 
     check_kernels(dev, report)
     check_follow(dev, report)
+    check_rel_attention(dev, report)
     report["stream_handle_us"] = stream_handle_us(dev)
     print(f"stream handle for a launch, host us: "
           f"{report['stream_handle_us']}", flush=True)
@@ -4487,7 +4585,9 @@ def main() -> int:
                            "setup_ms", "setup_and_levels_ms",
                            "empty_step_us", "steps", "sizes",
                            "planes_ms", "call_ms", "points",
-                           "points_differ", "roofline_pct")})
+                           "points_differ", "roofline_pct", "rms_err",
+                           "library_rms_err", "sdpa_alone_ms",
+                           "shared_bytes")})
                for name, r in report["kernels"].items()]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

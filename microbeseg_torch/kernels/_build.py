@@ -31,7 +31,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flood", "flood_frame", "cc", "matmul", "epilogue", "follow")
+SOURCES = ("flood", "flood_frame", "cc", "matmul", "epilogue", "follow",
+           "rel_attention")
 
 # launches per kernel wrapper (plain integers; reset with reset_launches)
 LAUNCHES: Dict[str, int] = {"flood_packed": 0, "flood_packed_cluster": 0,
@@ -52,11 +53,16 @@ LAUNCHES: Dict[str, int] = {"flood_packed": 0, "flood_packed_cluster": 0,
                             # the flows post-processing's Euler steps
                             # (csrc/follow.cu), and its plain grid_sample
                             # loop where that ran on the card
-                            "follow_flows": 0, "follow_flows_fallback": 0}
+                            "follow_flows": 0, "follow_flows_fallback": 0,
+                            # Cellpose-SAM's attention with its relative
+                            # terms (csrc/rel_attention.cu)
+                            "rel_attention": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # an engine on a mesh launches from one host thread per device
 _LAUNCH_LOCK = threading.Lock()
+# and its threads' first launches would build one library at once
+_LOAD_LOCK = threading.Lock()
 
 
 def count_launch(name: str) -> None:
@@ -125,11 +131,14 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = _lib_path(name)
-        if not path.is_file():
-            build_all([name])
-        lib = ctypes.CDLL(str(path))
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                path = _lib_path(name)
+                if not path.is_file():
+                    build_all([name])
+                lib = ctypes.CDLL(str(path))
+                _LIBS[name] = lib
     return lib
 
 

@@ -31,10 +31,15 @@ facebookresearch/segment-anything
 The parameters carry Cellpose-SAM's published names (``encoder.blocks.{i}.
 attn.rel_pos_h``, ...), so a ``cpsam`` state dict loads once its
 relative-position tables are taken to 2G - 1 rows
-(``models/torch_import.cellpose_sam_from_state_dict``).  The attention
-runs on ``F.scaled_dot_product_attention`` with the decomposed bias as its
-additive mask, which PyTorch's flash backend cannot take; the span
-``mseg.vit.attention`` marks the bias and the attention of each block.
+(``models/torch_import.cellpose_sam_from_state_dict``).  The device of the
+input picks the attention's route: on the card one launch of
+``ops/kernels/rel_attention.py`` (``csrc/rel_attention.cu``) reads q, k and
+v where the qkv projection wrote them, adds the relative terms to the
+logits in registers and writes the heads merged; on the CPU
+``F.scaled_dot_product_attention`` takes the decomposed bias that
+``rel_pos_bias`` builds as its additive mask.  The span
+``mseg.vit.attention`` marks the attention of each block, the relative
+term included.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from microbeseg_torch.config import CellposeSAMConfig
+from microbeseg_torch.ops.kernels.rel_attention import rel_attention
 from microbeseg_torch.utils.profiling import span
 
 LN_EPS = 1e-6
@@ -107,7 +113,14 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, g, _, d = x.shape
-        qkv = self.qkv(x).reshape(B, g * g, 3, self.heads, d // self.heads)
+        qkv = self.qkv(x)
+        if qkv.is_cuda:
+            with span("mseg.vit.attention"):
+                x = rel_attention(qkv.reshape(B, g * g, 3 * d),
+                                  self.rel_pos_h, self.rel_pos_w,
+                                  self.heads, g)
+            return self.proj(x.reshape(B, g, g, d))
+        qkv = qkv.reshape(B, g * g, 3, self.heads, d // self.heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
         with span("mseg.vit.attention"):
             bias = rel_pos_bias(q, self.rel_pos_h, self.rel_pos_w, g)

@@ -8,7 +8,8 @@ port's place, and for faults planted in the port.
 - ``control``: the reference network with every layer's operands rounded to
   8-bit floats in the port's place (``benchmark/entries/segment_flows.py``);
 - ``drop_rel_pos``: the port's attention without the decomposed
-  relative-position term (``models/vit_sam.rel_pos_bias`` returns zeros);
+  relative-position term (the card's attention kernel,
+  ``models/vit_sam.rel_attention``, is handed zero tables);
 - ``skip_flow_check``: the port's post-processing without the flow check;
 - ``half_niter``: the port's post-processing with half the Euler steps.
 
@@ -36,12 +37,12 @@ def plant(variant: str):
     from microbeseg_torch.ops import flows
 
     if variant == "drop_rel_pos":
-        owner, name = vit_sam, "rel_pos_bias"
+        owner, name = vit_sam, "rel_attention"
+        orig_attention = vit_sam.rel_attention
 
-        def patched(q, rel_pos_h, rel_pos_w, g):
-            n = q.shape[2]
-            return torch.zeros(q.shape[0], q.shape[1], n, n, dtype=q.dtype,
-                               device=q.device)
+        def patched(qkv, rel_pos_h, rel_pos_w, heads, g):
+            return orig_attention(qkv, torch.zeros_like(rel_pos_h),
+                                  torch.zeros_like(rel_pos_w), heads, g)
     elif variant == "skip_flow_check":
         owner, name = flows, "remove_bad_flow_masks"
 

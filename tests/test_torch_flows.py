@@ -191,3 +191,43 @@ def test_engine_refuses_what_the_flows_path_does_not_run(over):
     with pytest.raises(ValueError):
         InferenceEngine(model, "flows", cfg=InferConfig(**dict(INFER, **over)),
                         device="cpu")
+
+
+def test_kernel_library_builds_once_under_mesh_threads(tmp_path,
+                                                       monkeypatch):
+    """A flows engine on a mesh post-processes on one host thread per
+    device, and each thread's first ``follow_flows`` loads ``follow``'s
+    library: it is built once, and every thread gets the one library."""
+    import threading
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from microbeseg_torch.kernels import _build
+
+    builds, opened = [], []
+
+    def build_all(names):
+        builds.append(list(names))
+        time.sleep(0.2)
+        for name in names:
+            _build._lib_path(name).write_bytes(b"")
+
+    def cdll(path):
+        opened.append(path)
+        return object()
+
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_lib_path",
+                        lambda name: tmp_path / f"lib{name}.so")
+    monkeypatch.setattr(_build, "build_all", build_all)
+    monkeypatch.setattr(_build.ctypes, "CDLL", cdll)
+    start = threading.Barrier(4)
+
+    def load(_):
+        start.wait()
+        return _build.load("follow")
+
+    with ThreadPoolExecutor(4) as pool:
+        libs = list(pool.map(load, range(4)))
+    assert builds == [["follow"]] and len(opened) == 1
+    assert all(lib is libs[0] for lib in libs)

@@ -746,3 +746,246 @@ def test_follow_flows_kernel_matches_plain(dev, shape, niter):
             == before["follow_flows_fallback"] + 1)
     differ = (got != want).any(dim=1)
     assert float(differ.float().mean()) <= 1e-3
+
+
+def _rel_inputs(dev, B, heads, g, hd, rel_std, seed):
+    """A qkv tensor in the projection's own layout, (B, g^2, 3 * heads *
+    hd) bf16, and two (2g - 1, hd) float32 relative-position tables."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = (0.5 * torch.randn(B, g * g, 3 * heads * hd, generator=gen,
+                             device=dev)).to(torch.bfloat16)
+    tabs = [rel_std * torch.randn(2 * g - 1, hd, generator=gen, device=dev)
+            for _ in range(2)]
+    return qkv, tabs
+
+
+def _rms(t):
+    return float(t.float().pow(2).mean().sqrt())
+
+
+# rel_attention_kernel against the plain path in float32 (the block's
+# rel_pos_bias and an explicit softmax) from the same bf16 qkv.  The kernel
+# rounds three things to bf16: the tables before the relative products (as
+# the einsums under autocast do), the softmax weights before they multiply
+# v (as cuDNN's flash kernel does) and the output; each moves the output
+# by some 0.1-0.4% of its scale.  1% of the output's RMS for the RMS error
+# and 3% of its largest magnitude for the worst element leave room for
+# that and none for a wrong index, sign or shift.
+REL_RMS_TOL, REL_MAX_TOL = 0.01, 0.03
+
+
+def _check_rel_attention(got, want):
+    err = (got.float() - want).abs()
+    assert _rms(err) <= REL_RMS_TOL * _rms(want)
+    assert float(err.max()) <= REL_MAX_TOL * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,heads,g,hd,rel_std", [
+    (16, 16, 32, 64, 0.5),   # the cell's forward: 16 tiles of 1,024 tokens
+    (16, 16, 32, 64, 0.05),
+    (2, 4, 8, 16, 0.5),      # the families' tiny size
+    (3, 2, 6, 64, 0.5),      # ragged grids: tiles of keys and queries cut
+    (2, 3, 12, 64, 0.5),
+    (2, 4, 12, 16, 0.5),
+    (1, 2, 1, 64, 0.5),      # one token
+    (1, 2, 64, 64, 0.2)])    # the largest grid
+def test_rel_attention_matches_plain(dev, B, heads, g, hd, rel_std):
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.ops.kernels.rel_attention import (
+        rel_attention, rel_attention_plain)
+
+    qkv, (th, tw) = _rel_inputs(dev, B, heads, g, hd, rel_std, g * hd + B)
+    before = _build.LAUNCHES["rel_attention"]
+    got = rel_attention(qkv, th, tw, heads, g)
+    assert _build.LAUNCHES["rel_attention"] == before + 1
+    assert got.shape == (B, g * g, heads * hd) and got.dtype == torch.bfloat16
+    want = rel_attention_plain(qkv.float(), th, tw, heads, g)
+    _check_rel_attention(got, want)
+
+
+@pytest.mark.cuda
+def test_rel_attention_is_at_least_as_exact_as_the_bias_and_sdpa(dev):
+    """At the cell's shape, with relative terms of a few units: the kernel
+    keeps rel_h and rel_w in float32, the path it replaces rounds each
+    biased entry to bf16; against the float32 plain path the kernel's RMS
+    error is no larger than that path's."""
+    import torch.nn.functional as F
+
+    from microbeseg_torch.models import vit_sam
+    from microbeseg_torch.ops.kernels.rel_attention import (
+        rel_attention, rel_attention_plain, split_heads)
+
+    B, heads, g, hd = 16, 16, 32, 64
+    qkv, (th, tw) = _rel_inputs(dev, B, heads, g, hd, 0.5, 7)
+    want = rel_attention_plain(qkv.float(), th, tw, heads, g)
+    got = rel_attention(qkv, th, tw, heads, g)
+    q, k, v = split_heads(qkv, heads)
+    bias = vit_sam.rel_pos_bias(q, th, tw, g)
+    old = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    old = old.transpose(1, 2).reshape(B, g * g, heads * hd)
+    assert _rms(got.float() - want) <= _rms(old.float() - want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,hd", [(32, 64), (8, 16), (12, 64)])
+def test_rel_attention_zero_tables_give_plain_attention(dev, g, hd):
+    """With both tables 0 the kernel is plain softmax attention: against
+    PyTorch's math attention in float32."""
+    import torch.nn.functional as F
+
+    from microbeseg_torch.ops.kernels.rel_attention import (rel_attention,
+                                                            split_heads)
+
+    B, heads = 4, 4
+    qkv, (th, _) = _rel_inputs(dev, B, heads, g, hd, 0.0, g + hd)
+    got = rel_attention(qkv, th, th, heads, g)
+    q, k, v = split_heads(qkv.float(), heads)
+    want = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(
+        B, g * g, heads * hd)
+    _check_rel_attention(got, want)
+
+
+@pytest.mark.cuda
+def test_cellpose_sam_forward_takes_rel_attention(dev, monkeypatch):
+    """A published-width forward of two 256^2 tiles under inference_mode
+    and bf16 autocast launches rel_attention once a block (24) and never
+    calls rel_pos_bias or scaled_dot_product_attention; its fields agree
+    with the same forward whose attention is the float32 plain path
+    within 1% of their RMS (the attention's bf16 roundings, through 24
+    blocks)."""
+    import torch.nn.functional as F
+
+    from microbeseg_torch.config import CellposeSAMConfig
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models import vit_sam
+    from microbeseg_torch.ops.kernels import rel_attention as ra
+
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = vit_sam.build_cellpose_sam(CellposeSAMConfig()).eval()
+        for blk in model.encoder.blocks:
+            torch.nn.init.normal_(blk.attn.rel_pos_h, std=0.5)
+            torch.nn.init.normal_(blk.attn.rel_pos_w, std=0.5)
+        x = torch.rand(2, 3, 256, 256)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the card's forward called the CPU route")
+
+    with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16):
+        with monkeypatch.context() as mp:
+            mp.setattr(vit_sam, "rel_pos_bias", refused)
+            mp.setattr(F, "scaled_dot_product_attention", refused)
+            before = _build.LAUNCHES["rel_attention"]
+            got = model(x)
+            assert _build.LAUNCHES["rel_attention"] == before + 24
+        monkeypatch.setattr(vit_sam, "rel_attention",
+                            lambda qkv, *a: ra.rel_attention_plain(
+                                qkv.float(), *a).to(qkv.dtype))
+        want = model(x)
+    assert _rms(got.float() - want.float()) <= 0.01 * _rms(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["head_width", "float32", "grad", "grid",
+                                  "strided"])
+def test_rel_attention_refuses_what_it_does_not_take(dev, case):
+    from microbeseg_torch.ops.kernels.rel_attention import rel_attention
+
+    heads, g, hd = 2, 8, 64
+    if case == "head_width":
+        hd = 32
+    if case == "grid":
+        g = 65
+    qkv, (th, tw) = _rel_inputs(dev, 1, heads, g, hd, 0.5, 0)
+    if case == "float32":
+        qkv = qkv.float()
+    if case == "strided":   # rows of 3D + 8, the last 8 cut off
+        qkv = torch.nn.functional.pad(qkv, (0, 8))[..., :-8]
+    if case == "grad":
+        th.requires_grad_(True)
+    match = {"head_width": "head width 32", "float32": "bfloat16",
+             "grad": "no backward", "grid": "1 to 64",
+             "strided": "contiguous"}[case]
+    with pytest.raises(ValueError, match=match):
+        rel_attention(qkv, th, tw, heads, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,hd", [(32, 64), (64, 64)])
+def test_rel_attention_on_every_device(dev, g, hd):
+    """Each card raises the kernel's shared-memory limit for itself: the
+    first card alone, then every card at once from a host thread of its
+    own (as a mesh engine runs its shares), each against the plain path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from microbeseg_torch.ops.kernels.rel_attention import (
+        rel_attention, rel_attention_plain)
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    B, heads = 2, 4
+
+    def run(i):
+        d = torch.device("cuda", i)
+        with torch.cuda.device(d):
+            qkv, (th, tw) = _rel_inputs(d, B, heads, g, hd, 0.5, i)
+            got = rel_attention(qkv, th, tw, heads, g)
+            torch.cuda.synchronize(d)
+        return got, rel_attention_plain(qkv.float(), th, tw, heads, g)
+
+    _check_rel_attention(*run(0))
+    with ThreadPoolExecutor(n) as pool:
+        for got, want in pool.map(run, range(n)):
+            _check_rel_attention(got, want)
+
+
+@pytest.mark.cuda
+def test_cellpose_sam_engine_on_a_mesh_of_every_device(dev, monkeypatch):
+    """A published-width flows engine on a mesh of every card, each card's
+    share forwarded from a host thread of its own: every card launches the
+    kernel, 24 times a forward, and the stitched fields of the engine
+    without a mesh hold within 1% of their RMS (other batch shares take
+    other cuBLAS kernels, whose roundings differ).  Masks come back for
+    every frame."""
+    import threading
+
+    from benchmark.families import cellpose_sam as fam
+    from microbeseg_torch.config import CellposeSAMConfig, InferConfig
+    from microbeseg_torch.inference.engine import InferenceEngine
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models import vit_sam
+    from microbeseg_torch.parallel.mesh import get_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    with torch.device(dev):
+        model = vit_sam.build_cellpose_sam(CellposeSAMConfig())
+    model.load_state_dict(fam.make_weights(fam.PUBLISHED, 7, dev))
+    cfg = InferConfig(batch_size=16, use_tiling=True, tile_size=256,
+                      tile_overlap=56)
+    frames = np.random.default_rng(5).normal(
+        2500, 900, (2, 512, 512)).clip(0, 65535).astype(np.uint16)
+    want = InferenceEngine(model, "flows", cfg=cfg,
+                           device=dev).predict_raw(frames)[0]
+
+    seen, lock, kernel = [], threading.Lock(), vit_sam.rel_attention
+
+    def counted(qkv, *args):
+        with lock:
+            seen.append(qkv.device.index)
+        return kernel(qkv, *args)
+
+    monkeypatch.setattr(vit_sam, "rel_attention", counted)
+    engine = InferenceEngine(model, "flows", cfg=cfg, mesh=get_mesh())
+    before = _build.LAUNCHES["rel_attention"]
+    got = engine.predict_raw(frames)[0]
+    assert _build.LAUNCHES["rel_attention"] - before == len(seen)
+    assert sorted(set(seen)) == list(range(n))
+    assert all(seen.count(i) % 24 == 0 for i in range(n))
+    err = np.sqrt(np.mean((got - want) ** 2))
+    assert err <= 0.01 * np.sqrt(np.mean(want ** 2))
+    masks = engine.segment(frames)
+    assert masks.shape == frames.shape and masks.dtype == np.uint16

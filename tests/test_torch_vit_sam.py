@@ -6,6 +6,8 @@ the built bias against an explicit softmax; the import of a state dict
 under the published ``cpsam`` names; the published configuration's size.
 """
 
+import re
+
 import pytest
 import torch
 import torch.nn.functional as F
@@ -108,6 +110,114 @@ def test_sdpa_with_the_bias_is_the_explicit_softmax():
     sdpa = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
     torch.testing.assert_close(sdpa, explicit, rtol=1e-5, atol=1e-6)
     assert tuple(rel_index(3)[0]) == (2, 1, 0)
+
+
+def test_cpu_attention_is_the_bias_and_sdpa(monkeypatch):
+    """On the CPU each block's attention is still rel_pos_bias (through
+    that module name) and scaled_dot_product_attention, once a block, and
+    the card's kernel is not launched."""
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models import vit_sam
+
+    calls = {"bias": 0, "sdpa": 0}
+    bias_fn, sdpa_fn = vit_sam.rel_pos_bias, F.scaled_dot_product_attention
+
+    def bias(*args):
+        calls["bias"] += 1
+        return bias_fn(*args)
+
+    def sdpa(*args, **kwargs):
+        calls["sdpa"] += 1
+        return sdpa_fn(*args, **kwargs)
+
+    cfg = CellposeSAMConfig(**TINY)
+    model = build_cellpose_sam(cfg).eval()
+    model.load_state_dict(seeded_state(cfg, 6))
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        want = model(x)
+        monkeypatch.setattr(vit_sam, "rel_pos_bias", bias)
+        monkeypatch.setattr(F, "scaled_dot_product_attention", sdpa)
+        before = _build.LAUNCHES["rel_attention"]
+        got = model(x)
+    assert calls == {"bias": cfg.depth, "sdpa": cfg.depth}
+    assert _build.LAUNCHES["rel_attention"] == before
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("heads,hd,grid", [(4, 16, 8), (2, 64, 6),
+                                           (2, 64, 12), (3, 16, 1)])
+def test_rel_attention_plain_is_the_blocks_attention(heads, hd, grid):
+    """The kernel's plain version (``ops/kernels/rel_attention.py``), from
+    the qkv projection's own layout, against the block's CPU route (bias,
+    SDPA, heads merged) before ``proj``, float32."""
+    from microbeseg_torch.models.vit_sam import Attention
+    from microbeseg_torch.ops.kernels.rel_attention import rel_attention_plain
+
+    cfg = CellposeSAMConfig(embed_dim=heads * hd, num_heads=heads,
+                            img_size=8 * grid, depth=1, mlp_dim=64)
+    attn = Attention(cfg)
+    gen = torch.Generator().manual_seed(heads * hd + grid)
+    with torch.no_grad():
+        for t in (attn.rel_pos_h, attn.rel_pos_w):
+            t.copy_(0.5 * torch.randn(t.shape, generator=gen))
+        attn.proj.weight.copy_(torch.eye(heads * hd))
+        attn.proj.bias.zero_()
+        x = torch.randn(2, grid, grid, heads * hd, generator=gen)
+        want = attn(x).reshape(2, grid * grid, heads * hd)
+        qkv = attn.qkv(x).reshape(2, grid * grid, 3 * heads * hd)
+        got = rel_attention_plain(qkv, attn.rel_pos_h, attn.rel_pos_w,
+                                  heads, grid)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_rel_attention_takes_cuda_tensors_only():
+    """The wrapper runs the kernel alone: a CPU tensor is refused, since
+    the block's CPU route is its own (bias, then SDPA)."""
+    from microbeseg_torch.ops.kernels.rel_attention import rel_attention
+
+    qkv = torch.zeros(1, 64, 3 * 2 * 64, dtype=torch.bfloat16)
+    tab = torch.zeros(15, 64)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        rel_attention(qkv, tab, tab, 2, 8)
+
+
+REFUSALS = [("ok", None), ("head_width", "head width 32"),
+            ("grid", "1 to 64"), ("float32", "bfloat16"),
+            ("strided", "contiguous"), ("tables", r"\(15, 64\) float32"),
+            ("grad", "no backward"), ("shape", r"must be \(B, 64")]
+
+
+@pytest.mark.parametrize("case,match", REFUSALS,
+                         ids=[c for c, _ in REFUSALS])
+def test_rel_attention_refusal(case, match):
+    """What the kernel does not take, named (``refusal`` reads shapes,
+    types, strides and autograd only, so it runs on CPU tensors)."""
+    from microbeseg_torch.ops.kernels.rel_attention import refusal
+
+    heads, grid, hd = 2, 8, 64
+    if case == "head_width":
+        hd = 32
+    if case == "grid":
+        grid = 65
+    qkv = torch.zeros(1, grid * grid, 3 * heads * hd, dtype=torch.bfloat16)
+    th = torch.zeros(2 * grid - 1, hd)
+    tw = torch.zeros(2 * grid - 1, hd)
+    if case == "float32":
+        qkv = qkv.float()
+    if case == "strided":
+        qkv = torch.nn.functional.pad(qkv, (0, 8))[..., :-8]
+    if case == "tables":
+        tw = torch.zeros(2 * grid - 1, hd, dtype=torch.float64)
+    if case == "grad":
+        th.requires_grad_(True)
+    if case == "shape":
+        qkv = qkv[:, :-1]
+    why = refusal(qkv, th, tw, heads, grid)
+    if match is None:
+        assert why is None
+    else:
+        assert why is not None and re.search(match, why), why
 
 
 def published_dict(cfg, state, rows):
