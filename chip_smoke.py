@@ -17,18 +17,15 @@
    (64, 128, 320, 512, 768); K3 connected components, K4 rank relabel and
    ``ranked_components`` (K4 for K3's ids: ranks straight from a mask, the
    entry the main paths call) at 16 x 256^2 on seeded blob fields, a speckle
-   field, an empty and a full mask.  K3 is the one-launch tiled kernel; the
-   first port's three-pass route, kept for timing, is held beside it and
-   timed in turns with it (16 x 256^2, one 320^2 mask, 2048^2, 4096^2), and
+   field, an empty and a full mask.  K3 is the one-launch tiled kernel,
+   timed at 16 x 256^2, one 320^2 mask, 2048^2 and 4096^2, and
    ``torch.profiler`` must see exactly one device kernel in one
-   ``connected_components`` call (three for the three-pass route).  K2, the
-   frame flood, on both of its
-   kernels (the front kernel that ``flood_tiled`` launches, and the first
-   port's whole-frame sweep), with equal step
-   and work counts and markers above 4095, on 2 x 1024^2 (also 2 levels),
-   1000 x 1400 (also 2 levels), one 4096^2 and one 2048^2 field, timed in
-   turns, with the front kernel's set-up and an empty mask's step timed
-   apart; K3, K4 and ``ranked_components`` again on one 2048^2 field (K3
+   ``connected_components`` call.  K2, the frame flood (the front kernel
+   that ``flood_tiled`` launches), with its step and work counts and
+   markers above 4095, on 2 x 1024^2 (also 2 levels), 1000 x 1400 (also 2
+   levels), one 4096^2 and one 2048^2 field, timed, with the front kernel's
+   set-up and an empty mask's step timed apart; K3, K4 and
+   ``ranked_components`` again on one 2048^2 field (K3
    also on a one-pixel serpentine through every tile) and a 48 x 816 strip,
    and K3 on the 4096^2 field's seeds.
    K4's yardstick is the same function in PyTorch calls (root ranks, then a
@@ -52,8 +49,8 @@
    ``InferenceEngine.segment`` on 48 uint16 frames of 256^2 (3 batches of
    16), with every launch counter set to 0 just before and read just after.
    Checks that K1's one-block kernel and ``ranked_components`` launched and
-   K1's cluster kernel, the first port's K2 sweep and the general K4 did
-   not, that no out-of-memory fallback was taken, that the masks hold
+   K1's cluster kernel and the general K4 did not, that no out-of-memory
+   fallback was taken, that the masks hold
    instances, that the plain post-processing on the card gives the same
    masks from the same predictions, that post-processing with K3 followed by
    the general K4 as its labelling function gives them too (counters set to
@@ -65,8 +62,8 @@
    ``InferConfig(use_tiling=True)`` (tile 512, overlap 64: 25 tiles a
    frame, 8 a forward call) on 3 uint16 frames of 2048^2 with ~900 blobs
    each, counters set to 0 before and read after.  Checks that K2's front
-   kernel and ``ranked_components`` launched (and not the first port's K2
-   sweep), no out-of-memory fallback, instances and ids above 255,
+   kernel and ``ranked_components`` launched, no out-of-memory fallback,
+   instances and ids above 255,
    and that kernel post-processing equals plain post-processing on one
    whole stitched 2048^2 frame.  Times ``segment`` (frames/s, Mpx/s) and its
    forward, stitching and post-processing parts.
@@ -117,8 +114,8 @@
    (``connected_components``, the gap step) launched.  Times label
    generation a mask, and K3 alone on the gap mask the path gives it
    (1 x 256^2), 4- and 8-connected exactly equal to the plain version,
-   timed in turns with the three-pass route, with the host's enqueue
-   against the device time of one call of each, beside its plain version,
+   timed, with the host's enqueue against the device time of one call,
+   beside its plain version,
    its bound and the launch floor (one empty kernel, plain and cooperative,
    through the same ``ctypes`` route); these become K3's times in the
    kernel line (the 16 x 256^2 ones stay under ``*_b16``).
@@ -136,8 +133,8 @@
    norm of the CPU's), in float32 the card's no further from the float64
    step than twice the CPU's float32 step plus 1e-6, the loss within 1e-5.  Times a step in
    turns (whole, augmentation, forward + backward, optimizer), the host's
-   enqueue time of a step against its kernels' device time, the two
-   ``up_impl`` variants in turns, ms an epoch, s for the fit, peak memory,
+   enqueue time of a step against its kernels' device time, ms an epoch,
+   s for the fit, peak memory,
    and the step's share of 989 TFLOP/s from the convolutions' FLOPs.  With
    ``--train-quality`` it also trains the protocol's model (batch 8, 60
    epochs) and scores AJI+ on frames 40-49 with the ``Evaluator``.
@@ -151,8 +148,8 @@
    ``/healthz``, one 400 and one 413.  Checks that every response equals
    ``segment`` of its frames on the same engine bit for bit and its
    ``X-Instances``, that K1's one-block kernel and ``ranked_components``
-   launched (and not the cluster kernel, the K2 sweep, the general K4 or
-   the watershed route), and that no out-of-memory fallback was taken.
+   launched (and not the cluster kernel, the general K4 or the watershed
+   route), and that no out-of-memory fallback was taken.
    Times ``segment`` alone (and a fresh thread's first call), then median
    and p90 request latency and crops/s with 1 client (20 requests) and with
    4 (5 each), the clients processes of their own.
@@ -433,34 +430,22 @@ def k3_snake(size, tile=64):
     return m[None]
 
 
-def k3_turns(mask, reps, plain_reps):
-    """K3 on ``mask``: the tiled kernel (``ms``) and the first port's
-    three-pass route (``threepass_ms``) in turns (tiled, three-pass,
-    three-pass, tiled; the lesser of each two), and the plain version."""
+def k3_times(mask, reps, plain_reps):
+    """K3 on ``mask``: the tiled kernel's ms and the plain version's."""
     from microbeseg_torch.ops import cc
 
-    routes = dict(ms=cc.connected_components,
-                  threepass_ms=cc.connected_components_threepass)
-    turns = {k: [] for k in routes}
-    for k in ("ms", "threepass_ms", "threepass_ms", "ms"):
-        turns[k].append(cuda_ms(lambda: routes[k](mask), reps))
-    return dict(ms=min(turns["ms"]), threepass_ms=min(turns["threepass_ms"]),
-                turns=turns,
+    return dict(ms=cuda_ms(lambda: cc.connected_components(mask), reps),
                 plain_ms=cuda_ms(lambda: cc.connected_components_plain(mask),
                                  plain_reps, warmup=1))
 
 
 def k3_split(mask) -> dict:
-    """Host enqueue against device time of one K3 call, tiled and
-    three-pass (``host_and_device``)."""
+    """Host enqueue against device time of one K3 call
+    (``host_and_device``)."""
     from microbeseg_torch.ops import cc
 
-    new = host_and_device(lambda: cc.connected_components(mask), reps=200)
-    old = host_and_device(
-        lambda: cc.connected_components_threepass(mask), reps=200)
-    return dict(host_ms=new["host_ms"], device_us=new["device_us"],
-                threepass_host_ms=old["host_ms"],
-                threepass_device_us=old["device_us"])
+    t = host_and_device(lambda: cc.connected_components(mask), reps=200)
+    return dict(host_ms=t["host_ms"], device_us=t["device_us"])
 
 
 def launch_floor(dev) -> dict:
@@ -602,47 +587,35 @@ def check_kernels(dev, report):
                                  f"max abs err {err}")
         return err
 
-    # K3 connected components, the tiled kernel, and the first port's
-    # three-pass route kept for timing: blob seeds, a speckle field, an
-    # empty and a full mask
+    # K3 connected components: blob seeds, a speckle field, an empty and a
+    # full mask
     seeds_bin = cell > 0.6
     for conn in (1, 2):
         for field in (seeds_bin, speckle, torch.zeros_like(speckle),
                       torch.ones_like(speckle)):
-            want = cc.connected_components_plain(field, conn)
-            exact("K3", cc.connected_components(field, conn), want)
-            exact("K3 three-pass",
-                  cc.connected_components_threepass(field, conn), want)
-    # one call, one device kernel; the three-pass route shows three
+            exact("K3", cc.connected_components(field, conn),
+                  cc.connected_components_plain(field, conn))
+    # one call, one device kernel
     kernels = device_kernels(lambda: cc.connected_components(seeds_bin))
     if len(kernels) != 1 or "cc_tile_kernel" not in kernels[0]:
         raise AssertionError(f"connected_components launched {kernels}")
-    old_kernels = device_kernels(
-        lambda: cc.connected_components_threepass(seeds_bin))
-    if len(old_kernels) != 3:
-        raise AssertionError(f"three-pass route launched {old_kernels}")
     labels = cc.connected_components(seeds_bin)
     labels_speckle = cc.connected_components(speckle)
-    k3 = k3_turns(seeds_bin, 50, 3)
+    k3 = k3_times(seeds_bin, 50, 3)
     # the training crop's size, one mask
     crop320 = gaussian_filter(torch.from_numpy(blob_fields(
         np.random.default_rng(320), 1, 320, 60)).to(dev), 0.5) > 0.6
     exact("K3 320", cc.connected_components(crop320),
           cc.connected_components_plain(crop320))
-    k3_320 = k3_turns(crop320, 50, 3)
-    for name, ms in (("connected_components", "ms"),
-                     ("connected_components_threepass", "threepass_ms")):
-        results[name] = dict(
-            source="microbeseg_torch/csrc/cc.cu",
-            replaces="microbeseg_tpu/ops/pallas/propagate.py:133",
-            max_abs_err=0, ms=k3[ms], plain_ms=k3["plain_ms"],
-            library_ms=None, bytes=px * (1 + 4), ops=px * 8,
-            ms_320=k3_320[ms], plain_ms_320=k3_320["plain_ms"],
-            bytes_320=320 * 320 * 5, ops_320=320 * 320 * 8)
-    results["connected_components"].update(
-        device_kernels=kernels, threepass_device_kernels=old_kernels,
-        turns=k3["turns"], turns_320=k3_320["turns"],
-        ptxas=report["ptxas_k3"])
+    k3_320 = k3_times(crop320, 50, 3)
+    results["connected_components"] = dict(
+        source="microbeseg_torch/csrc/cc.cu",
+        replaces="microbeseg_tpu/ops/pallas/propagate.py:133",
+        max_abs_err=0, ms=k3["ms"], plain_ms=k3["plain_ms"],
+        library_ms=None, bytes=px * (1 + 4), ops=px * 8,
+        ms_320=k3_320["ms"], plain_ms_320=k3_320["plain_ms"],
+        bytes_320=320 * 320 * 5, ops_320=320 * 320 * 8,
+        device_kernels=kernels, ptxas=report["ptxas_k3"])
 
     # K4 rank relabel: CC ids of both fields, and 4-connected ids
     for lab in (labels, labels_speckle, cc.connected_components(speckle, 1)):
@@ -744,11 +717,10 @@ def check_kernels(dev, report):
               flush=True)
     k2 = results["flood_tiled"]
     for size, t in k2["sizes"].items():
-        print(f"K2 at {size}: front kernel {t['front_ms']:.5f} ms, first "
-              f"port's sweep {t['grid_ms']:.5f} ms, plain {t['plain_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.6f} ms ({t['bound_by']}); {t['steps']:.1f} "
-              f"steps, {t['front_ms'] * 1e3 / t['steps']:.4f} us a step "
-              f"(sweep {t['grid_ms'] * 1e3 / t['steps']:.4f}), "
+        print(f"K2 at {size}: front kernel {t['ms']:.5f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}); {t['steps']:.1f} steps, "
+              f"{t['ms'] * 1e3 / t['steps']:.4f} us a step, "
               f"{t['candidates']} candidates", flush=True)
     print(f"K2 at {BIG}^2: planes in PyTorch {k2['planes_ms']:.5f} ms; front "
           f"kernel set-up {k2['setup_ms']:.5f} ms, a step of an empty mask "
@@ -925,8 +897,8 @@ def check_big_kernels(dev, rng, results, exact):
         # ids above 4095, so the 24-bit label field is exercised
         return cell, torch.where(ranks > 0, ranks + 5000, 0), cell > 0.1
 
-    # K2, both kernels: two frames per call, a size 32 does not divide, and 2 levels (the boundary
-    # method's flood); then one 4096^2 and one 2048^2 field, all in turns
+    # K2: two frames per call, a size 32 does not divide, and 2 levels (the
+    # boundary method's flood); then one 4096^2 and one 2048^2 field
     sizes = {}
     for n, shape, n_blobs in ((2, (1024, 1024), 230), (1, (1000, 1400), 300)):
         cell, markers, mask = fields(n, shape, n_blobs)
@@ -945,22 +917,19 @@ def check_big_kernels(dev, rng, results, exact):
     px = BIG * BIG
     # the function reads value, markers and mask and writes labels: 13 B a
     # pixel; operations as for K1, 6 per candidate pixel and step
-    for name, form in (("flood_tiled", "front_ms"),
-                       ("flood_tiled_grid", "grid_ms")):
-        results[name] = dict(
-            source="microbeseg_torch/csrc/flood_frame.cu",
-            replaces="microbeseg_tpu/ops/pallas/flood.py:264",
-            max_abs_err=0, ms=k2[form], plain_ms=k2["plain_ms"],
-            library_ms=None, bytes=px * 13, ops=k2["candidates"] * 6,
-            shape=[1, BIG, BIG], steps=k2["steps"],
-            candidates=k2["candidates"],
-            us_per_step=k2[form] * 1e3 / k2["steps"],
-            in_mask_share=k2["in_mask_share"],
-            ms_4096=k4[form], plain_ms_4096=k4["plain_ms"],
-            bytes_4096=BIG4 * BIG4 * 13, ops_4096=k4["candidates"] * 6,
-            steps_4096=k4["steps"],
-            us_per_step_4096=k4[form] * 1e3 / k4["steps"])
-    results["flood_tiled"].update(
+    results["flood_tiled"] = dict(
+        source="microbeseg_torch/csrc/flood_frame.cu",
+        replaces="microbeseg_tpu/ops/pallas/flood.py:264",
+        max_abs_err=0, ms=k2["ms"], plain_ms=k2["plain_ms"],
+        library_ms=None, bytes=px * 13, ops=k2["candidates"] * 6,
+        shape=[1, BIG, BIG], steps=k2["steps"],
+        candidates=k2["candidates"],
+        us_per_step=k2["ms"] * 1e3 / k2["steps"],
+        in_mask_share=k2["in_mask_share"],
+        ms_4096=k4["ms"], plain_ms_4096=k4["plain_ms"],
+        bytes_4096=BIG4 * BIG4 * 13, ops_4096=k4["candidates"] * 6,
+        steps_4096=k4["steps"],
+        us_per_step_4096=k4["ms"] * 1e3 / k4["steps"],
         sizes=sizes, **k2_split(flood, -cell, markers, mask))
 
     seeds_bin = cell > 0.6
@@ -991,17 +960,13 @@ def check_big_kernels(dev, rng, results, exact):
     for conn in (1, 2):
         exact("K3 strip", cc.connected_components(strip, conn),
               cc.connected_components_plain(strip, conn))
-    k3 = k3_turns(seeds_bin, 20, 1)
-    k3_4096 = k3_turns(seeds4, 10, 1)
-    for name, ms in (("connected_components", "ms"),
-                     ("connected_components_threepass", "threepass_ms")):
-        results[name].update(
-            ms_2048=k3[ms], plain_ms_2048=k3["plain_ms"],
-            bytes_2048=px * (1 + 4), ops_2048=px * 8,
-            ms_4096=k3_4096[ms], plain_ms_4096=k3_4096["plain_ms"],
-            bytes_4096=BIG4 * BIG4 * (1 + 4), ops_4096=BIG4 * BIG4 * 8)
+    k3 = k3_times(seeds_bin, 20, 1)
+    k3_4096 = k3_times(seeds4, 10, 1)
     results["connected_components"].update(
-        turns_2048=k3["turns"], turns_4096=k3_4096["turns"],
+        ms_2048=k3["ms"], plain_ms_2048=k3["plain_ms"],
+        bytes_2048=px * (1 + 4), ops_2048=px * 8,
+        ms_4096=k3_4096["ms"], plain_ms_4096=k3_4096["plain_ms"],
+        bytes_4096=BIG4 * BIG4 * (1 + 4), ops_4096=BIG4 * BIG4 * 8,
         **{k + "_2048": v for k, v in k3_split(seeds_bin).items()})
     results["sequentialize_components"].update(
         ms_2048=cuda_ms(lambda: cc.sequentialize_components(labels), 20),
@@ -1016,43 +981,29 @@ def check_big_kernels(dev, rng, results, exact):
            for k, v in ranked_times(seeds_bin, labels, 20, 1).items()})
 
 
-K2_ROUTES = ("front", "grid")
-
-
 def k2_forms(flood, value, markers, mask, n_levels, reps):
-    """K2 on one input: the front kernel and the first port's whole-frame
-    sweep, each exactly equal to the plain version, with the same step and
-    work counts per frame; with ``reps``, their times in turns (front,
-    sweep, sweep, front; the lower of each pair) and the plain version's."""
+    """K2 on one input: the front kernel exactly equal to the plain
+    version, with a work count within its bounds; with ``reps``, its time
+    and the plain version's."""
     n = value.shape[0]
     want = flood.flood_tiled_plain(value, markers, mask, n_levels)
-    counts = {}
-    for route in K2_ROUTES:
-        steps = torch.empty((n,), dtype=torch.int32, device=value.device)
-        work = torch.zeros((n,), dtype=torch.int64, device=value.device)
-        got = flood._launch_tiled(value, markers, mask, n_levels, steps,
-                                  work, route=route)
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"K2 {route} differs from plain at {tuple(value.shape)}, "
-                f"{n_levels} levels, on {int((got != want).sum())} px")
-        counts[route] = steps.tolist(), work.tolist()
-    if counts["front"] != counts["grid"]:
-        raise AssertionError(f"K2 counts differ at {tuple(value.shape)}: "
-                             f"{counts}")
-    steps, work = counts["front"]
+    steps = torch.empty((n,), dtype=torch.int32, device=value.device)
+    work = torch.zeros((n,), dtype=torch.int64, device=value.device)
+    got = flood.flood_tiled(value, markers, mask, n_levels, steps, work)
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"K2 differs from plain at {tuple(value.shape)}, "
+            f"{n_levels} levels, on {int((got != want).sum())} px")
+    steps, work = steps.tolist(), work.tolist()
     n_work, in_mask = sum(work), int(mask.sum())
     if not 0 < n_work <= max(steps) * in_mask:
         raise AssertionError(f"K2 work count {n_work} out of range")
     if not reps:
         return None
-    times = {route: [] for route in K2_ROUTES}
-    for route in K2_ROUTES + K2_ROUTES[::-1]:
-        times[route].append(cuda_ms(lambda: flood._launch_tiled(
-            value, markers, mask, n_levels, route=route), reps))
     return dict(
-        shape=list(value.shape), front_ms=min(times["front"]),
-        grid_ms=min(times["grid"]),
+        shape=list(value.shape),
+        ms=cuda_ms(lambda: flood.flood_tiled(value, markers, mask, n_levels),
+                   reps),
         plain_ms=cuda_ms(lambda: flood.flood_tiled_plain(
             value, markers, mask, n_levels), 1, warmup=1),
         steps=sum(steps) / n, candidates=n_work,
@@ -1408,9 +1359,6 @@ def driven_segment(engine, frames, th_cell, th_seed, must_launch):
                              f"{frames.shape[1]}^2 path")
     if launches["flood_packed_cluster"]:
         raise AssertionError("the cluster kernel of K1 ran on the "
-                             f"{frames.shape[1]}^2 path")
-    if launches["flood_tiled_grid"]:
-        raise AssertionError("the first port's K2 sweep ran on the "
                              f"{frames.shape[1]}^2 path")
     if launches["watershed_route"]:
         raise AssertionError("the watershed route ran on the "
@@ -2046,8 +1994,8 @@ def require_launches(launches, must, where):
     for name in must:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on {where}")
-    for name in ("flood_packed_cluster", "flood_tiled_grid",
-                 "sequentialize_components", "watershed_route"):
+    for name in ("flood_packed_cluster", "sequentialize_components",
+                 "watershed_route"):
         if launches[name]:
             raise AssertionError(f"{name} ran on {where}: {launches}")
 
@@ -2862,8 +2810,7 @@ def eval_path(dev, report, model, profile=False):
             if launches[name] == 0:
                 raise AssertionError(f"kernel {name} was not launched on the "
                                      "evaluation path")
-        for name in ("flood_packed_cluster", "flood_tiled_grid",
-                     "sequentialize_components"):
+        for name in ("flood_packed_cluster", "sequentialize_components"):
             if launches[name]:
                 raise AssertionError(f"{name} ran on the evaluation path")
         # where the time of the first run goes: the same run again, under
@@ -3014,30 +2961,23 @@ def labels_path(dev, report):
                              f"{int(gap.sum())} px")
     for conn in (1, 2):
         want = cc.connected_components_plain(gap, conn)
-        for route in (cc.connected_components,
-                      cc.connected_components_threepass):
-            err = (route(gap, conn).to(torch.int64) - want).abs().max().item()
-            if err:
-                raise AssertionError(f"K3 ({route.__name__}) on the gap "
-                                     f"mask: max abs err {err}")
+        err = (cc.connected_components(gap, conn).to(torch.int64)
+               - want).abs().max().item()
+        if err:
+            raise AssertionError(f"K3 on the gap mask: max abs err {err}")
     px = gap.numel()
     t_bytes = px * (1 + 4) / HBM_BYTES_PER_S * 1e3
     t_ops = px * 8 / INT_OPS_PER_S * 1e3
-    turns = k3_turns(gap, 200, 3)
-    k3_host = k3_split(gap)
+    times = k3_times(gap, 200, 3)
     floor = launch_floor(dev)
-    for name, ms in (("connected_components", "ms"),
-                     ("connected_components_threepass", "threepass_ms")):
-        k3 = report["kernels"][name]
-        for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
-            k3[key + "_b16"] = k3[key]
-        k3.update(shape=[1, SIDE, SIDE], gap_px=int(gap.sum()),
-                  ms=turns[ms], plain_ms=turns["plain_ms"],
-                  bound_ms=max(t_bytes, t_ops),
-                  bound_by="bytes" if t_bytes >= t_ops else "operations")
     k3 = report["kernels"]["connected_components"]
-    k3.update(turns_gap=turns["turns"], launch_floor=floor, **k3_host)
-    old = report["kernels"]["connected_components_threepass"]
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+        k3[key + "_b16"] = k3[key]
+    k3.update(shape=[1, SIDE, SIDE], gap_px=int(gap.sum()),
+              ms=times["ms"], plain_ms=times["plain_ms"],
+              bound_ms=max(t_bytes, t_ops),
+              bound_by="bytes" if t_bytes >= t_ops else "operations",
+              launch_floor=floor, **k3_split(gap))
     out.update(seconds=seconds, ms_per_mask=seconds * 1e3 / 50,
                card_vs_cpu_max_abs_err=errs, launches=launches,
                get_label_distance=split)
@@ -3049,18 +2989,14 @@ def labels_path(dev, report):
           f"{split['device_ms']:.3f} ms of device time (largest, us: "
           f"{split['top_device_us']}); launches connected_components "
           f"{launches['connected_components']}", flush=True)
-    print(f"K3 on the path's gap mask (1 x {SIDE}^2, {k3['gap_px']} px set), "
-          f"in turns: tiled kernel {k3['ms']:.5f} ms, three-pass route "
-          f"{old['ms']:.5f} ms (turns {k3['turns_gap']}), plain "
-          f"{k3['plain_ms']:.4f} ms, bound {k3['bound_ms']:.7f} ms "
-          f"({k3['bound_by']}); host enqueue / device us: tiled "
-          f"{k3['host_ms']:.5f} ms / {k3['device_us']}, three-pass "
-          f"{k3['threepass_host_ms']:.5f} ms / {k3['threepass_device_us']}; "
+    print(f"K3 on the path's gap mask (1 x {SIDE}^2, {k3['gap_px']} px set): "
+          f"{k3['ms']:.5f} ms, plain {k3['plain_ms']:.4f} ms, bound "
+          f"{k3['bound_ms']:.7f} ms ({k3['bound_by']}); host enqueue / "
+          f"device us: {k3['host_ms']:.5f} ms / {k3['device_us']}; "
           f"launch floor through ctypes (event ms, host ms, device us): "
           f"{floor}", flush=True)
     for key in ("b16", "320", "2048", "4096"):
-        print(f"K3 at {key}: tiled {k3['ms_' + key]:.5f} ms, three-pass "
-              f"{old['ms_' + key]:.5f} ms, plain "
+        print(f"K3 at {key}: {k3['ms_' + key]:.5f} ms, plain "
               f"{k3['plain_ms_' + key]:.4f} ms, bound "
               f"{k3['bound_ms_' + key]:.6f} ms", flush=True)
     return launches
@@ -3256,13 +3192,10 @@ def step_times(tr, data, reps=4):
     """A full-width bf16 training step (batch 4 of 256^2) timed in turns:
     whole step, augmentation, forward + backward, optimizer step (CUDA
     events); the host's enqueue time of a step beside the device time of
-    its kernels (``torch.profiler``); both ``up_impl`` variants of the
-    upsampling, in turns; the step's share of the bf16 peak."""
+    its kernels (``torch.profiler``); the step's share of the bf16 peak."""
     from torch.profiler import ProfilerActivity, profile
 
-    from microbeseg_torch.models.unet import build_unet
     from microbeseg_torch.ops.augment import apply_params, draw_params
-    from microbeseg_torch.training.optimizers import build_optimizer
 
     cfg = tr.cfg
     gen = torch.Generator().manual_seed(11)
@@ -3320,31 +3253,11 @@ def step_times(tr, data, reps=4):
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
 
     flops = 3 * conv_flops(tr.model, aug()[0])
-
-    # up_impl: 'conv' (nn.ConvTranspose2d) against 'matmul' (_MatmulUp),
-    # same weights, forward + backward + step timed in turns
-    matmul = build_unet(cfg.model, up_impl="matmul").to(
-        tr.device, memory_format=torch.channels_last)
-    matmul.load_state_dict(tr.model.state_dict())
-    variants = {"conv": (tr.model, tr.optimizer),
-                "matmul": (matmul, build_optimizer(cfg, matmul)[0])}
-    up_ms = {k: [] for k in variants}
-    keep = tr.model, tr.optimizer
-    try:
-        for _ in range(reps):
-            for impl, (m, o) in variants.items():
-                tr.model, tr.optimizer = m, o
-                up_ms[impl].append(cuda_ms(
-                    lambda: (fwd_bwd(), opt()), 5, warmup=1))
-    finally:
-        tr.model, tr.optimizer = keep
-    up = {k: statistics.median(v) for k, v in up_ms.items()}
     return dict(ms=ms, ms_all=times,
                 host_enqueue_ms=statistics.median(host),
                 device_ms=device_ms, top_device_us=top,
                 n_kernel_names=len(kernels), conv_flops_per_step=flops,
-                peak_share=flops / (ms["step"] * 1e-3) / BF16_FLOPS_PER_S,
-                up_impl_ms=up, up_impl_ms_all=up_ms)
+                peak_share=flops / (ms["step"] * 1e-3) / BF16_FLOPS_PER_S)
 
 
 def train_path(dev, report, quality=False):
@@ -3467,8 +3380,7 @@ def train_path(dev, report, quality=False):
           f"; host enqueue {st['host_enqueue_ms']:.3f} ms vs device "
           f"{st['device_ms']:.3f} ms a step; "
           f"{st['conv_flops_per_step'] / 1e12:.4f} TFLOP a step = "
-          f"{100 * st['peak_share']:.2f}% of 989 TFLOP/s; up_impl ms "
-          f"{ {k: round(v, 4) for k, v in st['up_impl_ms'].items()} }; one "
+          f"{100 * st['peak_share']:.2f}% of 989 TFLOP/s; one "
           f"step card vs CPU (batch 4 of 256^2, leaf by leaf) "
           f"{out['step_card_vs_cpu']}; "
           f"launches connected_components {launches['connected_components']}"
@@ -4577,7 +4489,7 @@ def main() -> int:
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{k: v for k, v in r.items()
                        if k.endswith(("_320", "_2048", "_4096", "_b16"))
-                       or k.startswith(("turns", "threepass_")) or k in (
+                       or k.startswith("turns") or k in (
                            "gap_px", "launch_floor", "device_kernels",
                            "ptxas",
                            "shape", "shapes", "host_ms", "device_us",

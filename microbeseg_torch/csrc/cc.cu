@@ -74,11 +74,8 @@
 //   Fully unrolled loops spill at this register cap (a 272-byte stack),
 //   hence most loops unroll by 2.
 //
-// cc_launch_threepass: the first port of K3, three launches over every pixel
-// (uf_init, uf_merge, cc_finish) on a separate parent plane.  No path of
-// the package calls it; it stays for timing beside cc_tile_launch.
-//
-// rank_launch (general K4) and ranked_launch use the same three-pass forest:
+// rank_launch (general K4) and ranked_launch build a forest in passes over
+// every pixel, on a separate parent plane:
 // (1) every foreground pixel is its own root.  (2) every pixel unites with
 // its neighbours above and to the left (the 4 of 8-connectivity that come
 // earlier in raster order, 2 of 4-connectivity).  (3) each pixel finds its
@@ -168,17 +165,6 @@ __global__ void uf_merge(Fg f, int *parent, int B, int H, int W, int diag) {
       if (c < W - 1 && f.same(p, p - W + 1)) unite(parent, (int)p, (int)(p - W + 1));
     }
   }
-}
-
-__global__ void cc_finish(int *parent, int *out, long long n, int HW) {
-  long long p = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (p >= n) return;
-  if (__ldcg(parent + p) < 0) {
-    out[p] = 0;
-    return;
-  }
-  int root = find_root(parent, (int)p);
-  out[p] = root - (int)(p / HW) * HW + 1;
 }
 
 __global__ void rank_finish(const int *labels, const int *rank0, int *parent,
@@ -283,20 +269,6 @@ __global__ void ranked_write(const int *parent, int *out, const int *counts,
 
 static inline unsigned blocks_for(long long n) {
   return (unsigned)((n + THREADS - 1) / THREADS);
-}
-
-extern "C" int cc_launch_threepass(const void *mask, void *parent, void *out, int B,
-                         int H, int W, int connectivity, void *stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  long long n = (long long)B * H * W;
-  if (n == 0) return 0;
-  MaskFg f{(const uint8_t *)mask};
-  uf_init<<<blocks_for(n), THREADS, 0, s>>>(f, (int *)parent, n);
-  uf_merge<<<blocks_for(n), THREADS, 0, s>>>(f, (int *)parent, B, H, W,
-                                             connectivity == 2);
-  cc_finish<<<blocks_for(n), THREADS, 0, s>>>((int *)parent, (int *)out, n,
-                                              H * W);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int rank_launch(const void *labels, const void *rank0,

@@ -15,10 +15,8 @@
 // the same no-op) and ends the cleanup.  (127 << 24) | 0xFFFFFF equals the
 // sentinel, so labels stay below 2^24 - 1.
 //
-// Two kernels, one cooperative launch per frame each, the same labels, step
-// counts and work counts:
-//
-// flood_front_kernel (flood_front_launch; every flood_tiled call).  What
+// One kernel, flood_front_kernel (flood_front_launch), one cooperative
+// launch per frame; every flood_tiled call launches it.  What
 // bounds it on the H100: a chain of ~n_levels * inner_steps + cleanup
 // dependent steps, each ended by a barrier over the whole grid, and a step
 // changes only the thin front of the basins.  So the fixed cost of a
@@ -56,14 +54,6 @@
 //     It is not hand-written: the counter barrier tried in its place was
 //     no faster, in turns, beyond what separate runs vary (PERF.md).
 //
-// flood_frame_kernel (flood_frame_launch): the first port of the TPU
-// kernel, kept beside the new one so both can be timed and their counts
-// compared.  Every step sweeps the whole frame with as many blocks as the
-// card holds, reads the old key plane and writes the new one (ping-pong),
-// and ends in grid.sync() plus a flag round trip.  At 2048^2 its three
-// int32 planes are 48 MB, the size of the L2, so each step streams the
-// planes from device memory.
-//
 // work_out (optional, zeroed by the caller): per frame, the number of
 // candidate pixels the steps examined (in the mask, active at the level,
 // still unlabelled), summed over steps: the work the function needs, from
@@ -75,7 +65,6 @@
 
 namespace cg = cooperative_groups;
 
-#define THREADS 512
 #define BIG_KEY 0x7FFFFFFF
 #define LABEL_BITS 24
 #define LABEL_MASK 0xFFFFFF
@@ -96,122 +85,6 @@ __device__ __forceinline__ int grid_any(cg::grid_group &grid, int changed,
   if (threadIdx.x == 0) *s_any = __ldcg(flags + slot);
   __syncthreads();
   return *s_any;
-}
-
-__global__ void __launch_bounds__(THREADS)
-flood_frame_kernel(const int *__restrict__ qs, int *key_a, int *key_b,
-                   int *__restrict__ out, int *flags,
-                   int *__restrict__ steps_out,
-                   unsigned long long *__restrict__ work_out, int H, int W,
-                   int n_levels, int inner_steps, int max_final_iters) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ int s_any;
-  const int n = H * W;
-  const int first = blockIdx.x * THREADS + threadIdx.x;
-  const int stride = gridDim.x * THREADS;
-  int *cur = key_a, *nxt = key_b;
-
-  // one synchronous step: returns whether this thread grew a pixel.
-  // active(p): qs[p] <= athr; a labelled neighbour counts iff key < thr.
-  long long examined = 0;
-  auto step = [&](const int *src, int *dst, int athr, unsigned thr) {
-    int changed = 0;
-    for (int p = first; p < n; p += stride) {
-      int k = __ldcg(src + p);
-      if (k == BIG_KEY) {
-        int a = qs[p];
-        if (a <= athr) {
-          ++examined;
-          int r = p / W, c = p - r * W;
-          unsigned best = BIG_KEY;
-          if (r > 0) best = min(best, (unsigned)__ldcg(src + p - W));
-          if (r < H - 1) best = min(best, (unsigned)__ldcg(src + p + W));
-          if (c > 0) best = min(best, (unsigned)__ldcg(src + p - 1));
-          if (c < W - 1) best = min(best, (unsigned)__ldcg(src + p + 1));
-          if (best < thr) {
-            k = a | ((int)best & LABEL_MASK);
-            changed = 1;
-          }
-        }
-      }
-      __stcg(dst + p, k);
-    }
-    return changed;
-  };
-
-  int nsteps = 0;
-  for (int lvl = 0; lvl < n_levels; ++lvl) {
-    long long t = ((long long)(lvl + 1)) << LABEL_BITS;
-    unsigned thr = t < BIG_KEY ? (unsigned)t : (unsigned)BIG_KEY;
-    int athr = lvl << LABEL_BITS;
-    for (int s = 0; s < inner_steps; ++s) {
-      int changed = step(cur, nxt, athr, thr);
-      int any = grid_any(grid, changed, flags, &s_any, nsteps);
-      int *tmp = cur; cur = nxt; nxt = tmp;
-      ++nsteps;
-      if (!any) break;
-    }
-  }
-  for (int it = 0; it < max_final_iters; ++it) {
-    int changed = step(cur, nxt, BIG_KEY - 1, (unsigned)BIG_KEY);
-    int any = grid_any(grid, changed, flags, &s_any, nsteps);
-    int *tmp = cur; cur = nxt; nxt = tmp;
-    ++nsteps;
-    if (!any) break;
-  }
-
-  for (int p = first; p < n; p += stride) {
-    int k = __ldcg(cur + p);
-    out[p] = k < BIG_KEY ? (k & LABEL_MASK) : 0;
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *steps_out = nsteps;
-  if (work_out) {
-    for (int o = 16; o > 0; o >>= 1)
-      examined += __shfl_xor_sync(0xffffffff, examined, o);
-    if ((threadIdx.x & 31) == 0 && examined)
-      atomicAdd(work_out, (unsigned long long)examined);
-  }
-}
-
-// qs, key (the seeded plane; overwritten), scratch, out: (B, H, W) int32;
-// flags: (B, 3) int32 zeros; steps: (B,) int32; work: (B,) int64 or null.
-extern "C" int flood_frame_launch(const void *qs, void *key, void *scratch,
-                                  void *out, void *flags, void *steps,
-                                  void *work, int B, int H, int W,
-                                  int n_levels, int inner_steps,
-                                  int max_final_iters, void *stream) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, flood_frame_kernel, THREADS, 0);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-  const long long n = (long long)H * W;
-  if (n == 0 || B == 0) return 0;
-  long long want = (n + THREADS - 1) / THREADS;
-  long long fit = (long long)sms * per_sm;
-  int blocks = (int)(want < fit ? want : fit);
-  for (int b = 0; b < B; ++b) {
-    const int *qs_b = (const int *)qs + b * n;
-    int *key_b = (int *)key + b * n;
-    int *scratch_b = (int *)scratch + b * n;
-    int *out_b = (int *)out + b * n;
-    int *flags_b = (int *)flags + b * 3;
-    int *steps_b = (int *)steps + b;
-    unsigned long long *work_b =
-        work ? (unsigned long long *)work + b : nullptr;
-    void *args[] = {&qs_b, &key_b, &scratch_b, &out_b, &flags_b, &steps_b,
-                    &work_b, &H, &W, &n_levels, &inner_steps,
-                    &max_final_iters};
-    e = cudaLaunchCooperativeKernel((void *)flood_frame_kernel, dim3(blocks),
-                                    dim3(THREADS), args, 0,
-                                    (cudaStream_t)stream);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

@@ -12,18 +12,15 @@ the (D)U-Net in batches (bf16 autocast on CUDA) on one of two paths:
   the device, runs them in batches and stitches the predictions with
   feathered weights.
 
-Predictions scale back up to the frame, are post-processed on the device
-(distance or boundary method), and only uint16 masks come back.
+Predictions scale back up to the frame, are post-processed on the device,
+and only uint16 masks come back.
 
-With ``label_type="flows"`` the network is Cellpose-SAM
-(``models/vit_sam.py``): each frame is normalised by its 1st and 99th
-percentiles (Cellpose's ``normalize99``), every frame takes the tiled path
-with tiles of the network's input size (a smaller frame is padded with 0),
-the one-channel tiles fill input channel 0 of the network's three, the
-three output fields (dY, dX, cell probability) are stitched as the
-boundary path stitches its three, and Cellpose's flow dynamics
-(``ops/flows.py``) make the masks.  Test-time augmentation, int8 and
-scaling are refused there.
+What depends on the label type (the normalisation, the pad value, the
+fields a model gives, the refusals, the post-processing, the threshold
+grid) is its entry in ``inference/label_types.py``; with
+``label_type="flows"`` the network is Cellpose-SAM (``models/vit_sam.py``),
+normalised by its percentiles, padded with 0 and always tiled.  The engine
+stitches, scales and batches every field by its shape alone.
 
 With ``InferConfig.quantize`` the large-spatial 3x3 convolutions take their
 int8 path (``models.blocks.QuantConv``, kernel K5).  Their activation scales
@@ -53,6 +50,7 @@ import numpy as np
 import torch
 
 from microbeseg_torch.config import InferConfig
+from microbeseg_torch.inference.label_types import label_type_entry
 from microbeseg_torch.inference.tiling import (
     extract_tiles_device,
     stitch_tiles_device,
@@ -62,12 +60,6 @@ from microbeseg_torch.models.blocks import ConvBlock, QuantConv
 from microbeseg_torch.models.io import load_model
 from microbeseg_torch.models.unet import set_quantize
 from microbeseg_torch.ops.augment import clahe
-from microbeseg_torch.ops.flows import flows_postprocessing
-from microbeseg_torch.ops.postprocessing import (
-    boundary_postprocessing,
-    distance_postprocessing,
-    distance_postprocessing_grid,
-)
 from microbeseg_torch.ops.resize import resize
 from microbeseg_torch.parallel.mesh import (Mesh, batch_sharding,
                                             replicated_sharding)
@@ -77,24 +69,6 @@ from microbeseg_torch.utils.profiling import span
 
 # numpy dtypes that upload as they are; anything else goes up as float32
 _UPLOAD_DTYPES = frozenset(("uint8", "int16", "int32", "float32"))
-
-
-def _normalize99(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, W) float32 -> (x - p1) / (p99 - p1) per frame with its 1st
-    and 99th percentiles (linear between order statistics, as
-    ``np.percentile``), or 0 where they lie within 1e-3 (Cellpose's
-    ``normalize99``)."""
-    s = torch.sort(x.reshape(x.shape[0], -1), dim=1).values
-    n = s.shape[1]
-    p = []
-    for q in (0.01, 0.99):
-        pos = q * (n - 1)
-        i = int(pos)
-        j = min(i + 1, n - 1)
-        p.append(s[:, i] + (s[:, j] - s[:, i]) * (pos - i))
-    lo, d = p[0][:, None, None], (p[1] - p[0])[:, None, None]
-    return torch.where(d > 1e-3, (x - lo) / torch.where(d > 1e-3, d, 1.0),
-                       torch.zeros_like(x))
 
 
 class InferenceEngine:
@@ -119,8 +93,9 @@ class InferenceEngine:
                              "(per-member activation calibration is not "
                              "implemented)")
         self.label_type = label_type
-        if label_type == "flows":
-            self._check_flows(model)
+        # everything that depends on the label type
+        self._lt = label_type_entry(label_type)
+        self._lt.check(model, self.cfg)
         # padded (h, w) shapes whose calibration pass has run: larger frames
         # quantise more layers, so each shape calibrates once.  None: the
         # engine runs no int8 layer
@@ -145,24 +120,6 @@ class InferenceEngine:
         self.max_seeds = max_seeds
         # out-of-memory fallbacks taken (zero predictions / masks)
         self.oom_count = 0
-
-    def _check_flows(self, model: torch.nn.Module) -> None:
-        """Refuse settings the flows path does not run: its tiles are the
-        network's input size, and flows neither flip with TTA nor scale."""
-        size = getattr(getattr(model, "cfg", None), "img_size", None)
-        if size is None:
-            raise ValueError("label_type 'flows' needs a Cellpose-SAM model "
-                             "(models/vit_sam.py)")
-        cfg = self.cfg
-        if cfg.tile_size != size:
-            raise ValueError(f"label_type 'flows': tile_size must be the "
-                             f"network's input size {size}, got "
-                             f"{cfg.tile_size}")
-        bad = [k for k, v in (("tta", cfg.tta), ("quantize", cfg.quantize),
-                              ("scale_factor", cfg.scale_factor != 1))
-               if v]
-        if bad:
-            raise ValueError(f"label_type 'flows' does not run {bad}")
 
     @classmethod
     def from_checkpoint(cls, model_path: Union[str, Path],
@@ -322,7 +279,7 @@ class InferenceEngine:
     def _resident_frames_cap(self, h: int, w: int, dtype) -> int:
         """Frames of a stack held on the device at once (raw upload plus
         float32 prediction maps), so memory stays bounded in T."""
-        pred_bytes = 8 if self.label_type == "distance" else 12
+        pred_bytes = 4 * sum(math.prod(f) for f in self._lt.fields)
         per_frame = h * w * (np.dtype(dtype).itemsize + pred_bytes)
         return max(1, (6 << 30) // max(per_frame, 1))
 
@@ -345,22 +302,15 @@ class InferenceEngine:
         return max(int(round(h * scale)), 1), max(int(round(w * scale)), 1)
 
     def _prep_ops(self, x: torch.Tensor) -> torch.Tensor:
-        """Raw (B, H, W) frames -> float32 normalised to [-1, 1] per frame,
-        after CLAHE on the [0, 1]-rescaled frame when ``apply_clahe``; a
-        constant frame maps to all-zero."""
+        """Raw (B, H, W) frames -> float32 normalised per frame as the label
+        type normalises, after CLAHE on the [0, 1]-rescaled frame when
+        ``apply_clahe``."""
         x = x.to(torch.float32)
         if self.cfg.apply_clahe:
             mn = x.amin(dim=(1, 2), keepdim=True)
             mx = x.amax(dim=(1, 2), keepdim=True)
             x = clahe((x - mn) / torch.clamp(mx - mn, min=1e-7)) * 65535.0
-        if self.label_type == "flows":
-            return _normalize99(x)
-        mn = x.amin(dim=(1, 2), keepdim=True)
-        mx = x.amax(dim=(1, 2), keepdim=True)
-        denom = mx - mn
-        safe = torch.where(denom > 0, denom, torch.ones_like(denom))
-        return torch.where(denom > 0, 2.0 * (x - mn) / safe - 1.0,
-                           torch.zeros_like(x))
+        return self._lt.normalize(x)
 
     def _prep(self, raw: torch.Tensor, sh: int, sw: int) -> torch.Tensor:
         """Raw frames -> normalised frames at the network's size (sh, sw):
@@ -370,46 +320,35 @@ class InferenceEngine:
 
     def _prep_padded(self, raw: torch.Tensor, sh: int, sw: int, pad_y: int,
                      pad_x: int) -> torch.Tensor:
-        """``_prep``, then the up-left pad to the bucket with -1 (the
-        normalised minimum)."""
+        """``_prep``, then the up-left pad to the bucket with the label
+        type's pad value (-1, the normalised minimum)."""
         return torch.nn.functional.pad(self._prep(raw, sh, sw),
-                                       (pad_x, 0, pad_y, 0), value=-1.0)
+                                       (pad_x, 0, pad_y, 0),
+                                       value=self._lt.pad_value)
 
     def _cut_tiles(self, raw: torch.Tensor, sh: int, sw: int, ph: int,
                    pw: int, tile: int, pos) -> torch.Tensor:
         """Raw (b, H, W) frames -> their normalised tiles (b, n, tile,
         tile); a frame with a side below the tile is padded down-right with
-        the normalised minimum first (-1; 0 for flows)."""
+        the label type's pad value first (-1; 0 for flows)."""
         norm = self._prep(raw, sh, sw)
         if ph or pw:
-            low = 0.0 if self.label_type == "flows" else -1.0
-            norm = torch.nn.functional.pad(norm, (0, pw, 0, ph), value=low)
+            norm = torch.nn.functional.pad(norm, (0, pw, 0, ph),
+                                           value=self._lt.pad_value)
         return extract_tiles_device(norm, tile, pos)
 
     def _net_apply(self, x: torch.Tensor, models: Sequence[torch.nn.Module]
                    ) -> Tuple[torch.Tensor, ...]:
-        """Model application on normalised, padded (B, H, W, 1) input:
-        distance -> (border, cell) each (B, H, W); boundary -> (softmax
-        probs (B, H, W, 3),); flows -> ((dY, dX, cell probability) (B, H,
-        W, 3),), the input in channel 0 of the network's.  Ensemble
-        members average head-wise; with ``cfg.tta`` predictions also
+        """Model application on normalised, padded (B, H, W, 1) input -> the
+        label type's fields, each (B, H, W) or (B, H, W, C).  Ensemble
+        members average field-wise; with ``cfg.tta`` predictions also
         average over the 4 flips, or all 8 dihedral transforms when H == W
-        (both heads are scalar fields, so inverse-mapping and averaging is
-        exact).  ``models``: the members
-        on ``x``'s device."""
+        (every field is per pixel, so inverse-mapping and averaging is
+        exact).  ``models``: the members on ``x``'s device."""
         def base(xv):
             acc = None
             for model in models:
-                if self.label_type == "flows":
-                    xin = torch.nn.functional.pad(
-                        xv.permute(0, 3, 1, 2),
-                        (0, 0, 0, 0, 0, model.cfg.ch_in - 1))
-                    out = [model(xin).permute(0, 2, 3, 1).contiguous()]
-                elif self.label_type == "distance":
-                    preds = model(xv)
-                    out = [preds[0][..., 0], preds[1][..., 0]]
-                else:
-                    out = [torch.softmax(model(xv), dim=-1)]
+                out = self._lt.apply(model, xv)
                 acc = out if acc is None else [a + b for a, b in zip(acc, out)]
             return [a / len(models) for a in acc]
 
@@ -460,11 +399,10 @@ class InferenceEngine:
         return tuple(resize(p, raw.shape[1:], "linear") for p in preds)
 
     def _zero_preds(self, b: int, h: int, w: int) -> Tuple[torch.Tensor, ...]:
-        z = torch.zeros((b, h, w), dtype=torch.float32, device=self.device)
-        if self.label_type == "distance":
-            return z, z.clone()
-        return (torch.zeros((b, h, w, 3), dtype=torch.float32,
-                            device=self.device),)
+        """All-zero fields of ``b`` frames of (h, w): the out-of-memory
+        fallback."""
+        return tuple(torch.zeros((b, h, w, *f), dtype=torch.float32,
+                                 device=self.device) for f in self._lt.fields)
 
     def _upload(self, frames: np.ndarray) -> torch.Tensor:
         with span("mseg.segment.upload"):
@@ -482,12 +420,13 @@ class InferenceEngine:
     def _predict_raw_dev(self, frames: np.ndarray) -> Tuple[torch.Tensor, ...]:
         """``predict_raw`` with the predictions left on the device, where
         ``segment`` post-processes them.  The tiled path takes frames whose
-        scaled size is beyond the bucket table, and with ``use_tiling``
-        those with a side above the tile size."""
+        scaled size is beyond the bucket table, with ``use_tiling`` those
+        with a side above the tile size, and every frame of a label type
+        that is always tiled."""
         frames = np.asarray(frames)
         if frames.ndim == 2:
             frames = frames[None]
-        if self.label_type == "flows":
+        if self._lt.always_tiled:
             return self._predict_tiled(frames)
         sh, sw = self._scaled_hw(*frames.shape[1:])
         try:
@@ -530,7 +469,7 @@ class InferenceEngine:
         with the frame's own min and max, tiles cut on the device, forward
         in device batches of tiles, feathered stitching on the device.  A
         frame with a side below the tile is tiled over its extent padded
-        with -1 (the normalised minimum) and the stitched maps are cropped
+        with the label type's pad value and the stitched maps are cropped
         back.  Memory stays bounded because frame chunks are processed end
         to end and not every tile is held.  Out-of-memory gives zero
         predictions for the chunk, counted."""
@@ -575,25 +514,27 @@ class InferenceEngine:
             preds = [self._forward(flat[ts:ts + bs_tile])
                      for ts in range(0, b * n, bs_tile)]
         full = (sh + ph, sw + pw)
+
+        def stitch(field):   # (b * n, tile, tile) or (b * n, tile, tile, c)
+            if field.ndim == 3:
+                return stitch_tiles_device(field.view(b, n, tile, tile), pos,
+                                           full)[:, :sh, :sw]
+            c = field.shape[-1]
+            # channels ride the stitch batch axis: (b * c, n, tile, tile)
+            chan = field.view(b, n, tile, tile, c).movedim(-1, 1).reshape(
+                b * c, n, tile, tile)
+            sp = stitch_tiles_device(chan, pos, full).view(b, c, *full)
+            return sp[:, :, :sh, :sw].movedim(1, -1)
+
         with span("mseg.segment.stitch"):
-            if self.label_type == "distance":
-                return tuple(
-                    stitch_tiles_device(
-                        torch.cat([p[i] for p in preds]).view(b, n, tile,
-                                                              tile),
-                        pos, full)[:, :sh, :sw]
-                    for i in range(2))
-            probs = torch.cat([p[0] for p in preds]).view(b, n, tile, tile,
-                                                          3)
-            # channels ride the stitch batch axis: (b * 3, n, tile, tile)
-            chan = probs.movedim(-1, 1).reshape(b * 3, n, tile, tile)
-            sp = stitch_tiles_device(chan, pos, full).view(b, 3, *full)
-            return (sp[:, :, :sh, :sw].movedim(1, -1),)
+            return tuple(stitch(torch.cat([p[i] for p in preds]))
+                         for i in range(len(preds[0])))
 
     def predict_raw(self, frames: np.ndarray) -> Tuple[np.ndarray, ...]:
         """CNN predictions for a (T, H, W) stack (or one (H, W) frame) at
-        the original resolution: distance -> (border, cell) each (T, H, W);
-        boundary -> (T, H, W, 3) softmax."""
+        the original resolution: the label type's fields, distance ->
+        (border, cell) each (T, H, W); boundary -> (T, H, W, 3) softmax;
+        flows -> (T, H, W, 3) (dY, dX, cell probability)."""
         frames = np.asarray(frames)
         if frames.ndim == 2:
             frames = frames[None]
@@ -620,16 +561,8 @@ class InferenceEngine:
 
         def run(i, dst, *chunk):
             with span("mseg.segment.postprocess"):
-                if self.label_type == "distance":
-                    m = distance_postprocessing(chunk[0], chunk[1], th_seed,
-                                                th_cell, max_seeds=cap)
-                elif self.label_type == "flows":
-                    m = torch.stack([
-                        flows_postprocessing(f[..., :2].permute(2, 0, 1),
-                                             f[..., 2], self.cfg)
-                        for f in chunk[0]])
-                else:
-                    m = boundary_postprocessing(chunk[0], max_seeds=cap)
+                m = self._lt.postprocess(chunk, th_cell, th_seed, cap,
+                                         self.cfg)
             with span("mseg.segment.download"):
                 dst[...] = m.cpu().numpy()
 
@@ -673,7 +606,7 @@ class InferenceEngine:
         of (th_cell, th_seed) -> (n, H, W) uint16, the grid post-processed
         as one batch on the device.  Distance models only: the boundary
         method has no thresholds to grid over."""
-        if self.label_type != "distance":
+        if self._lt.grid is None:
             raise ValueError(
                 "segment_grid applies only to distance models; use "
                 "segment() for the boundary method (no threshold grid)")
@@ -682,8 +615,8 @@ class InferenceEngine:
         cap = self._seeds_cap(*frame.shape[-2:])
 
         def run(i, pairs, b, c):
-            return distance_postprocessing_grid(
-                b[0], c[0], pairs, max_seeds=cap).cpu().numpy()
+            return self._lt.grid(b[0], c[0], pairs,
+                                 max_seeds=cap).cpu().numpy()
 
         try:
             if self.mesh is None:

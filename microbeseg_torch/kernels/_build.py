@@ -36,9 +36,7 @@ SOURCES = ("flood", "flood_frame", "cc", "matmul", "epilogue", "follow",
 
 # launches per kernel wrapper (plain integers; reset with reset_launches)
 LAUNCHES: Dict[str, int] = {"flood_packed": 0, "flood_packed_cluster": 0,
-                            "flood_tiled": 0, "flood_tiled_grid": 0,
-                            "connected_components": 0,
-                            "connected_components_threepass": 0,
+                            "flood_tiled": 0, "connected_components": 0,
                             "sequentialize_components": 0,
                             "ranked_components": 0,
                             "matmul_int8": 0, "matmul_bf16": 0,

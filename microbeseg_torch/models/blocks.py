@@ -9,8 +9,6 @@ Module and attribute names follow the reference's ``src/utils/unets.py``
 same ``weight`` and ``bias`` as the ``nn.Conv2d`` it extends, and an int8
 path whose product runs through kernel K5 (``ops/kernels/matmul.py``,
 ``conv3x3_int8``).
-``_MatmulUp`` is the 2x2 stride-2 transposed convolution as one matrix
-product, with ``nn.ConvTranspose2d``'s parameters.
 ``ConvBlock(remat_policy=)`` recomputes the block's activations in the
 backward pass instead of keeping them (the JAX package's ``nn.remat`` of
 ``ConvBlock``), with the same numbers and the same ``state_dict``.
@@ -417,40 +415,13 @@ class ConvPool(nn.Module):
         return self.conv_pool(x)
 
 
-class _MatmulUp(nn.ConvTranspose2d):
-    """2x2 stride-2 transposed convolution as one matrix product and a
-    depth-to-space.  Kernel equals stride, so no taps overlap and
-    ``out[b, f, 2y + i, 2x + j] = sum_c x[b, c, y, x] * W[c, f, i, j] +
-    bias[f]`` is a linear map per pixel: (B * H * W, C) x (C, 4F).  The
-    parameters are ``nn.ConvTranspose2d``'s."""
-
-    def __init__(self, ch_in: int, ch_out: int):
-        super().__init__(ch_in, ch_out, 2, stride=2)
-
-    def forward(self, x):
-        B, C, H, W = x.shape
-        Fo = self.out_channels
-        w = self.weight.permute(0, 2, 3, 1).reshape(C, 4 * Fo)  # (c, i j f)
-        z = torch.matmul(x.permute(0, 2, 3, 1), w)
-        z = z.view(B, H, W, 2, 2, Fo).permute(0, 1, 3, 2, 4, 5)
-        z = z.reshape(B, 2 * H, 2 * W, Fo) + self.bias.to(z.dtype)
-        return _in_format_of(z.permute(0, 3, 1, 2), x)
-
-
 class TranspConvBlock(nn.Module):
-    """Upsample: transposed conv 2x2 stride 2 -> norm.  ``up_impl``: 'conv'
-    is ``nn.ConvTranspose2d``, 'matmul' the equivalent matrix product
-    (``_MatmulUp``, same parameters); on the fused eval route both run as
-    the transposed convolution without its bias."""
+    """Upsample: transposed conv 2x2 stride 2 -> norm; on the fused eval
+    route the transposed convolution runs without its bias."""
 
-    def __init__(self, ch_in: int, ch_out: int, normalization: str = "bn",
-                 up_impl: str = "conv"):
+    def __init__(self, ch_in: int, ch_out: int, normalization: str = "bn"):
         super().__init__()
-        if up_impl not in ("conv", "matmul"):
-            raise ValueError(f"Unsupported up_impl: {up_impl}")
-        self.up = nn.Sequential(
-            _MatmulUp(ch_in, ch_out) if up_impl == "matmul"
-            else nn.ConvTranspose2d(ch_in, ch_out, 2, stride=2))
+        self.up = nn.Sequential(nn.ConvTranspose2d(ch_in, ch_out, 2, stride=2))
         self.norm = make_norm(normalization, ch_out)
 
     def forward(self, x):

@@ -37,9 +37,9 @@ def _level_features(filters: Tuple[int, int]) -> List[int]:
 
 
 def _decoder(feats: List[int], ch_out: int, act_fun: str, normalization: str,
-             up_impl: str, quantize: bool, remat_policy
+             quantize: bool, remat_policy
              ) -> Tuple[nn.ModuleList, nn.ModuleList]:
-    ups = nn.ModuleList([TranspConvBlock(f, f // 2, normalization, up_impl)
+    ups = nn.ModuleList([TranspConvBlock(f, f // 2, normalization)
                          for f in reversed(feats[1:])])
     convs = nn.ModuleList([ConvBlock(f, f // 2, act_fun, normalization,
                                      quantize, remat_policy)
@@ -55,8 +55,7 @@ class UNet(nn.Module):
                  pool_method: str = "conv", act_fun: str = "relu",
                  normalization: str = "bn",
                  filters: Tuple[int, int] = (64, 1024),
-                 up_impl: str = "conv", quantize: bool = False,
-                 remat_policy=None):
+                 quantize: bool = False, remat_policy=None):
         super().__init__()
         feats = _level_features(filters)
         self.pool_method = pool_method
@@ -67,8 +66,8 @@ class UNet(nn.Module):
         if pool_method == "conv":
             self.pooling = nn.ModuleList(
                 [ConvPool(f, act_fun, normalization) for f in feats[:-1]])
-        self._init_decoders(feats, ch_out, act_fun, normalization, up_impl,
-                            quantize, remat_policy)
+        self._init_decoders(feats, ch_out, act_fun, normalization, quantize,
+                            remat_policy)
 
     def _init_decoders(self, feats, ch_out, *block_args):
         self.decoderUpconv, self.decoderConv = _decoder(feats, ch_out,
@@ -113,10 +112,9 @@ class DUNet(UNet):
                  pool_method: str = "conv", act_fun: str = "relu",
                  normalization: str = "bn",
                  filters: Tuple[int, int] = (64, 1024),
-                 up_impl: str = "conv", quantize: bool = False,
-                 remat_policy=None):
+                 quantize: bool = False, remat_policy=None):
         super().__init__(ch_in, ch_out, pool_method, act_fun, normalization,
-                         filters, up_impl, quantize, remat_policy)
+                         filters, quantize, remat_policy)
 
     def _init_decoders(self, feats, ch_out, *block_args):
         self.decoder1Upconv, self.decoder1Conv = _decoder(feats, ch_out,
@@ -141,19 +139,18 @@ def set_quantize(model: nn.Module, quantize: bool = True) -> nn.Module:
     return model
 
 
-def build_unet(cfg: ModelConfig, up_impl: str = "conv",
-               quantize: bool = False, remat_policy=None) -> UNet:
+def build_unet(cfg: ModelConfig, quantize: bool = False,
+               remat_policy=None) -> UNet:
     """Model factory: DUNet for unet_type 'DU', UNet for 'U'.
 
-    ``up_impl``: 'conv' | 'matmul', the implementation of the 2x2 stride-2
-    upsampling (same parameters; see ``blocks._MatmulUp``).  ``quantize``:
-    int8 inference on the large-spatial 3x3 convolutions (same parameters,
-    eval mode only; see ``blocks.QuantConv``).  ``remat_policy``: None |
-    'dots' | 'nothing', ConvBlock-level rematerialisation of every encoder
-    and decoder ``ConvBlock`` in training (same parameters and numbers; a
-    train-step memory / speed knob; see ``blocks.ConvBlock``)."""
+    ``quantize``: int8 inference on the large-spatial 3x3 convolutions
+    (same parameters, eval mode only; see ``blocks.QuantConv``).
+    ``remat_policy``: None | 'dots' | 'nothing', ConvBlock-level
+    rematerialisation of every encoder and decoder ``ConvBlock`` in
+    training (same parameters and numbers; a train-step memory / speed
+    knob; see ``blocks.ConvBlock``)."""
     cls = DUNet if cfg.unet_type == "DU" else UNet
     return cls(ch_in=cfg.ch_in, ch_out=cfg.ch_out,
                pool_method=cfg.pool_method, act_fun=cfg.act_fun,
                normalization=cfg.normalization, filters=tuple(cfg.filters),
-               up_impl=up_impl, quantize=quantize, remat_policy=remat_policy)
+               quantize=quantize, remat_policy=remat_policy)

@@ -158,23 +158,6 @@ def connected_components(mask: torch.Tensor,
     return out[0] if squeeze else out
 
 
-def connected_components_threepass(mask: torch.Tensor,
-                                   connectivity: int = 2) -> torch.Tensor:
-    """The first port of K3 (``csrc/cc.cu::cc_launch_threepass``: three
-    launches and a parent plane of its own), the same ids as
-    ``connected_components``.  No path of the package calls it; it stays
-    for timing beside the tiled kernel.  CUDA tensors only."""
-    m, squeeze = _cuda_mask(mask, connectivity,
-                            "connected_components_threepass")
-    B, H, W = m.shape
-    out = torch.empty((B, H, W), dtype=torch.int32, device=m.device)
-    parent = torch.empty((B, H, W), dtype=torch.int32, device=m.device)
-    _launch("connected_components_threepass", "cc_launch_threepass", 3, 4,
-            (_build.ptr(m), _build.ptr(parent), _build.ptr(out), B, H, W,
-             connectivity, _build.stream_ptr(m)))
-    return out[0] if squeeze else out
-
-
 def ranked_components_plain(mask: torch.Tensor,
                             connectivity: int = 2) -> torch.Tensor:
     """The components of ``mask`` numbered 1..n in raster order of their

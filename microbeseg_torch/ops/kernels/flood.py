@@ -22,7 +22,7 @@ version beside it, the same steps in PyTorch.  ``flood_packed`` has two
 kernels, picked by ``flood_packed_route``: one block per image for up to 256
 levels, and an 8-block cluster per image for more.  ``flood_tiled`` launches
 the front kernel (bitplanes in L2, keys updated in place, one grid barrier a
-step); the first port's whole-frame sweep stays beside it for timing.
+step).
 """
 
 from __future__ import annotations
@@ -286,23 +286,12 @@ def flood_tiled(value: torch.Tensor, markers: torch.Tensor,
     ``steps_out`` and ``work_out`` as in ``flood_packed``."""
     if value.device.type == "cpu":
         return flood_tiled_plain(value, markers, mask, n_levels)
-    return _launch_tiled(value, markers, mask, n_levels, steps_out, work_out)
-
-
-def _launch_tiled(value, markers, mask, n_levels, steps_out=None,
-                  work_out=None, route: str = "front"):
-    """Launch K2.  ``route`` is 'front' everywhere in the package: the front
-    kernel.  'grid' launches the first port's whole-frame sweep (counted as
-    ``flood_tiled_grid``) and exists only so that ``chip_smoke.py`` and the
-    CUDA tests can hold and time both kernels at one shape."""
     if value.device.type != "cuda":
         raise RuntimeError(f"flood_tiled: unsupported device {value.device}")
     _check_tiled(n_levels)
     if n_levels < 1:
         raise ValueError(f"flood_tiled needs at least one level, got "
                          f"{n_levels}")
-    if route not in ("front", "grid"):
-        raise ValueError(f"flood_tiled: unknown route {route!r}")
     squeeze, value, markers, mask = _as_batch(value, markers, mask)
     B, H, W = value.shape
     words = H * ((W + 31) // 32)
@@ -317,31 +306,21 @@ def _launch_tiled(value, markers, mask, n_levels, steps_out=None,
         steps_out = torch.empty((B,), dtype=torch.int32, device=dev)
     _check_work_out(work_out, B, dev)
     work = None if work_out is None else _build.ptr(work_out)
-    if route == "front":
-        # U (two buffers) and A (two buffers) as bitplanes, the in-mask
-        # pixels sorted by level, and each frame's rotating flag words
-        planes = torch.empty((4, words), dtype=torch.int32, device=dev)
-        order = torch.empty((words * 32,), dtype=torch.int32, device=dev)
-        flags = torch.zeros((B, 3), dtype=torch.int32, device=dev)
-        fn = _build.entry("flood_frame", "flood_front_launch", 8, 6)
-        ptrs = (out, planes, order, flags)
-        name = "flood_tiled"
-    else:
-        # the second key plane (ping-pong) and the rotating flag words
-        scratch = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-        flags = torch.zeros((B, 3), dtype=torch.int32, device=dev)
-        fn = _build.entry("flood_frame", "flood_frame_launch", 7, 6)
-        ptrs = (scratch, out, flags)
-        name = "flood_tiled_grid"
+    # U (two buffers) and A (two buffers) as bitplanes, the in-mask pixels
+    # sorted by level, and each frame's rotating flag words
+    planes = torch.empty((4, words), dtype=torch.int32, device=dev)
+    order = torch.empty((words * 32,), dtype=torch.int32, device=dev)
+    flags = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+    fn = _build.entry("flood_frame", "flood_front_launch", 8, 6)
     with torch.cuda.device(dev):  # the launch sizes its grid for this card
-        err = fn(_build.ptr(qs), _build.ptr(key0),
-                 *(_build.ptr(t) for t in ptrs), _build.ptr(steps_out), work,
-                 B, H, W, n_levels, _INNER_STEPS, H * W,
-                 _build.stream_ptr(value))
-    _build.check(err, name)
-    _build.count_launch(name)
+        err = fn(_build.ptr(qs), _build.ptr(key0), _build.ptr(out),
+                 _build.ptr(planes), _build.ptr(order), _build.ptr(flags),
+                 _build.ptr(steps_out), work, B, H, W, n_levels,
+                 _INNER_STEPS, H * W, _build.stream_ptr(value))
+    _build.check(err, "flood_tiled")
+    _build.count_launch("flood_tiled")
     # one launch a frame, one after the other
-    profiling.count_steps(name, steps_out, "sum")
+    profiling.count_steps("flood_tiled", steps_out, "sum")
     return out[0] if squeeze else out
 
 

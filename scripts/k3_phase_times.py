@@ -11,10 +11,9 @@ beside the port's own libraries, and launches it once on each mask after a
 warm-up.  For each mask it prints, over the blocks, the median and the most
 microseconds a block spent in Phase A, waiting in the first barrier, in
 Phase B, waiting in the second barrier and in Phase C; then the
-microseconds a launch of the instrumented kernel and of the three-pass
-route take back to back from C (no Python between launches).  The ids are
-held against the plain version after the first launches and after the
-loops.
+microseconds a launch of the instrumented kernel takes back to back from C
+(no Python between launches).  The ids are held against the plain version
+after the first launches and after the loop.
 """
 
 from __future__ import annotations
@@ -63,17 +62,14 @@ extern "C" int sm_clock_khz() {
   cudaDeviceGetAttribute(&khz, cudaDevAttrClockRate, 0);
   return khz;
 }
-extern "C" float loop_us(const void *mask, void *parent, void *out, int B,
-                         int H, int W, int threepass, int n, void *stream) {
+extern "C" float loop_us(const void *mask, void *out, int B, int H, int W,
+                         int n, void *stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaEvent_t a, b;
   cudaEventCreate(&a);
   cudaEventCreate(&b);
   cudaEventRecord(a, s);
-  for (int i = 0; i < n; ++i) {
-    if (threepass) cc_launch_threepass(mask, parent, out, B, H, W, 2, s);
-    else cc_tile_launch(mask, out, B, H, W, 2, s);
-  }
+  for (int i = 0; i < n; ++i) cc_tile_launch(mask, out, B, H, W, 2, s);
   cudaEventRecord(b, s);
   cudaEventSynchronize(b);
   float ms = 0;
@@ -116,7 +112,7 @@ def build() -> ctypes.CDLL:
     lib.cc_tile_launch.restype = i
     lib.phase_stamps.argtypes = [v, i]
     lib.phase_grid.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
-    lib.loop_us.argtypes = [v, v, v, i, i, i, i, i, v]
+    lib.loop_us.argtypes = [v, v, i, i, i, i, v]
     lib.loop_us.restype = ctypes.c_float
     return lib
 
@@ -169,7 +165,6 @@ def main() -> int:
         tile, blocks = tile.value, blocks.value
         tiles = B * -(-H // tile) * -(-W // tile)
         out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-        parent = torch.empty_like(out)
         want = cc.connected_components_plain(m)
         for _ in range(3):
             if lib.cc_tile_launch(m.data_ptr(), out.data_ptr(), B, H, W, 2,
@@ -182,19 +177,17 @@ def main() -> int:
         lib.phase_stamps(st.ctypes.data, blocks)
         st = st.reshape(blocks, 8)[:, :6]
         us = np.diff(st, axis=1) / (clock_khz / 1e3)
-        loop = {route: lib.loop_us(m.data_ptr(), parent.data_ptr(),
-                                   out.data_ptr(), B, H, W, route, 200,
-                                   stream) for route in (0, 1)}
+        loop = lib.loop_us(m.data_ptr(), out.data_ptr(), B, H, W, 200, stream)
         torch.cuda.synchronize()
         if not torch.equal(out, want):
-            raise AssertionError(f"{name}: ids differ after the loops")
+            raise AssertionError(f"{name}: ids differ after the loop")
         phases = ", ".join(
             f"{p} {np.median(us[:, i]):.2f}/{us[:, i].max():.2f}"
             for i, p in enumerate(PHASES))
         print(f"{name}: {tiles} tiles of {tile}^2 on {blocks} blocks; us a "
               f"block, median/most: {phases}; blocks' mean span "
-              f"{us.sum(axis=1).mean():.2f}; launch back to back: tiled "
-              f"{loop[0]:.2f}, three-pass {loop[1]:.2f}", flush=True)
+              f"{us.sum(axis=1).mean():.2f}; launch back to back: "
+              f"{loop:.2f}", flush=True)
     return 0
 
 

@@ -435,7 +435,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 30
-    for mod in ("inference.tiling", "ops.resize", "ops.augment",
+    for mod in ("inference.tiling", "inference.label_types", "ops.resize",
+                "ops.augment",
                 "ops.kernels.matmul", "evaluation.metrics",
                 "evaluation.evaluator", "cli.evaluate", "ops.morphology",
                 "ops.edt", "ops.regionprops", "ops.labelgen",
@@ -458,3 +459,46 @@ def test_port_imports_without_jax_or_the_jax_package():
                     part.split()[0] for part in m.group(2).split(",")]
                 roots = {mod.split(".")[0] for mod in mods}
                 assert not roots & banned, f"{src}: {line}"
+
+
+@pytest.mark.parametrize("case", ["distance-bucket", "distance-tiled",
+                                  "boundary-bucket", "boundary-tiled",
+                                  "flows"])
+def test_out_of_memory_gives_zero_fields_and_masks(request, monkeypatch,
+                                                    case):
+    """A forward that runs out of memory: each chunk's fields are all zero
+    in the normal path's shapes, ``segment`` returns all-zero uint16 masks
+    of the frames' shape, and ``oom_count`` rises by one a chunk (each
+    chunk's first forward raises and ends the chunk)."""
+    if case == "flows":
+        from tests.test_torch_flows import INFER, seeded_frames, tiny_model
+        engine = InferenceEngine(tiny_model()[0], "flows",
+                                 cfg=InferConfig(**INFER, batch_size=2),
+                                 device="cpu")
+        frames = seeded_frames(2, 100, 4)
+    else:
+        kind, path = case.split("-")
+        ckpt = request.getfixturevalue(
+            "checkpoint" if kind == "distance" else "boundary_checkpoint")
+        cfg = dict(TILED) if path == "tiled" else {}
+        engine = InferenceEngine.from_checkpoint(
+            ckpt, cfg=InferConfig(batch_size=2, **cfg), device="cpu")
+        frames = _frames(3, 100 if path == "tiled" else 64)
+    want = engine.predict_raw(frames)
+    raised = []
+
+    def out_of_memory(*args, **kwargs):
+        raised.append(1)
+        raise torch.cuda.OutOfMemoryError("out of memory")
+
+    monkeypatch.setattr(engine, "_forward", out_of_memory)
+    got = engine.predict_raw(frames)
+    chunks = len(raised)
+    assert chunks >= 2 and engine.oom_count == chunks
+    assert [g.shape for g in got] == [w.shape for w in want]
+    for g in got:
+        assert g.dtype == np.float32 and not g.any()
+    masks = engine.segment(frames)
+    assert len(raised) == engine.oom_count == 2 * chunks
+    assert masks.dtype == np.uint16 and masks.shape == frames.shape
+    assert not masks.any()

@@ -110,8 +110,7 @@ def test_cc_tile_kernel_matches_plain(dev, shape):
     """K3's one-launch tiled kernel bit for bit against the plain version,
     4- and 8-connected, on shapes the tiles do and do not divide (32^2 tiles
     below 132 tiles of 64^2, 64^2 tiles from 16 x 256^2 on; 1402 columns
-    take the byte loads); the first port's three-pass route gives the same
-    ids."""
+    take the byte loads)."""
     for name, mask in _k3_masks(sum(shape), *shape).items():
         m = torch.from_numpy(mask).to(dev)
         for conn in (1, 2):
@@ -120,9 +119,6 @@ def test_cc_tile_kernel_matches_plain(dev, shape):
             assert got.dtype == torch.int32 and got.shape == m.shape, name
             torch.testing.assert_close(got, want, rtol=0, atol=0,
                                        msg=f"{name}, connectivity {conn}")
-            torch.testing.assert_close(
-                cc.connected_components_threepass(m, conn), want, rtol=0,
-                atol=0)
     # one image, no batch axis; a mask that starts off a 4-byte boundary
     torch.testing.assert_close(cc.connected_components(m[0]),
                                cc.connected_components_plain(m[0]), rtol=0,
@@ -357,11 +353,12 @@ def _frame_cases(seed, B, H, W):
                                    (1, 769, 1), (1, 800, 13),
                                    (1, 2048, 2048)])
 def test_frame_front_kernel_matches_plain(dev, shape):
-    """K2's front kernel against the plain version, exactly, with its step
-    and work counts equal to the first port's whole-frame sweep: two frames
-    a call, a width that 32 does not divide, one- and 13-pixel-wide strips
-    (word ranges that start mid-row, blocks with no word), 2048^2; five
-    mask and seed cases, 128 and 2 levels, ids above 4095 up to 2^24 - 2."""
+    """K2's front kernel against the plain version, exactly, with a work
+    count within its bound (none of an empty mask): two frames a call, a
+    width that 32 does not divide, one- and 13-pixel-wide strips (word
+    ranges that start mid-row, blocks with no word), 2048^2; five mask and
+    seed cases, 128 and 2 levels, ids above 4095 up to 2^24 - 2; one
+    ``flood_tiled`` launch a call."""
     from microbeseg_torch.kernels import _build
     from microbeseg_torch.ops.kernels import flood
 
@@ -371,21 +368,19 @@ def test_frame_front_kernel_matches_plain(dev, shape):
                     for a in (value, markers, mask))
         for n_levels in (128, 2):
             want = flood.flood_tiled_plain(v, mk, m, n_levels)
-            counts = {}
-            for route in ("front", "grid"):
-                steps = torch.empty((B,), dtype=torch.int32, device=dev)
-                work = torch.zeros((B,), dtype=torch.int64, device=dev)
-                got = flood._launch_tiled(v, mk, m, n_levels, steps, work,
-                                          route=route)
-                assert torch.equal(got, want), (name, n_levels, route)
-                counts[route] = steps.tolist(), work.tolist()
-            assert counts["front"] == counts["grid"], (name, n_levels)
-    # flood_tiled takes the front kernel
-    before = dict(_build.LAUNCHES)
+            steps = torch.empty((B,), dtype=torch.int32, device=dev)
+            work = torch.zeros((B,), dtype=torch.int64, device=dev)
+            got = flood.flood_tiled(v, mk, m, n_levels, steps, work)
+            assert torch.equal(got, want), (name, n_levels)
+            # per frame, at most its in-mask pixels on each step
+            in_mask = m.flatten(1).sum(1)
+            assert ((work >= 0) & (work <= steps.long() * in_mask)).all(), (
+                name, n_levels)
+            if name == "empty":
+                assert not work.any(), n_levels
+    before = _build.LAUNCHES["flood_tiled"]
     flood.flood_tiled(v, mk, m)
-    assert {k: _build.LAUNCHES[k] - before[k]
-            for k in ("flood_tiled", "flood_tiled_grid")} == {
-        "flood_tiled": 1, "flood_tiled_grid": 0}
+    assert _build.LAUNCHES["flood_tiled"] - before == 1
 
 
 @pytest.mark.cuda

@@ -1,10 +1,10 @@
 """Port vs JAX: int8 inference (``InferConfig.quantize``).
 
 Kernel K5's plain versions against the TPU kernel's own product, ``QuantConv``
-alone, the quantised model with activation scales carried across, the
-matmul upsampling, and the engine's calibration (the two engines side by
-side are in ``test_torch_engine.py``).  JAX runs at float32 under
-matmul precision 'highest'; inputs and weights are drawn with numpy.
+alone, the quantised model with activation scales carried across, and the
+engine's calibration (the two engines side by side are in
+``test_torch_engine.py``).  JAX runs at float32 under matmul precision
+'highest'; inputs and weights are drawn with numpy.
 """
 
 import numpy as np
@@ -510,40 +510,6 @@ def test_quantized_model_quality_bars(model_case):
         assert _rms(p - d) < 0.08 * _rms(p) + 1e-3
         assert _rms(d - s) < 0.05 * max(_rms(d), 1e-6) + 1e-3
         assert _rms(d - s) > 0   # the static scales are in use
-
-
-# --- up_impl="matmul" -----------------------------------------------------
-
-def test_matmul_up_matches_convtranspose_and_jax():
-    """Same keys; outputs equal to ``ConvTranspose2d``'s at rtol 1e-5; and
-    against the JAX model at atol 1e-4, as the other forwards."""
-    rng = np.random.default_rng(8)
-    arch = dict(filters=(8, 32), act_fun="relu", normalization="gn")
-    jcfg = JModelConfig(**arch)
-    variables = random_variables(jbuild(jcfg, dtype=jnp.float32), rng)
-    x = rng.standard_normal((2, 32, 32, 1)).astype(np.float32)
-    with jax.default_matmul_precision("highest"):
-        ref = jbuild(jcfg, dtype=jnp.float32, up_impl="matmul").apply(
-            variables, jnp.asarray(x), train=False)
-    sd = state_dict_from_variables(variables)
-    conv = build_unet(ModelConfig(**arch)).eval()
-    mm = build_unet(ModelConfig(**arch), up_impl="matmul").eval()
-    assert list(conv.state_dict()) == list(mm.state_dict())
-    conv.load_state_dict(sd)
-    mm.load_state_dict(sd)
-    assert isinstance(mm.decoder1Upconv[0].up[0], blocks._MatmulUp)
-    for c, m, r in zip(_apply(conv, x), _apply(mm, x), ref):
-        np.testing.assert_allclose(m, c, rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(m, np.asarray(r), atol=1e-4, rtol=0)
-    # the layer alone, odd sizes, against ConvTranspose2d with its weights
-    up = blocks._MatmulUp(6, 4)
-    ref_up = torch.nn.ConvTranspose2d(6, 4, 2, stride=2)
-    ref_up.load_state_dict(up.state_dict())
-    xt = torch.from_numpy(rng.standard_normal((2, 6, 5, 7)).astype(np.float32))
-    with torch.no_grad():
-        torch.testing.assert_close(up(xt), ref_up(xt), rtol=1e-5, atol=1e-6)
-    with pytest.raises(ValueError, match="up_impl"):
-        build_unet(ModelConfig(**arch), up_impl="einsum")
 
 
 # --- the engine -----------------------------------------------------------
