@@ -214,8 +214,9 @@
    ``cpsam_tiled2048`` mix with its seeded weights: ``follow_flows`` and
    K3 launched, no fallback, the same masks on a second call, the masks
    found against the cells drawn, and the device seconds of each span.
-   ``--flows-only`` builds ``follow.cu``, ``cc.cu`` and
-   ``rel_attention.cu`` and runs only this and step 19.
+   ``--flows-only`` builds ``follow.cu``, ``cc.cu``,
+   ``rel_attention.cu`` and ``add_layernorm.cu`` and runs only this and
+   steps 19 and 20.
 19. Cellpose-SAM's attention: A, ``rel_attention_kernel``
    (``csrc/rel_attention.cu``), at the cell's shape (16 tiles of 1,024
    tokens, 16 heads of 64) from a qkv tensor in the projection's layout,
@@ -224,6 +225,14 @@
    ``rel_pos_bias`` in bf16, then ``scaled_dot_product_attention``), each
    timed beside its bound (operations: the two products over 989
    TFLOP/s).  The flows path of step 18 must launch it, 24 times a forward.
+20. Cellpose-SAM's residual add, LayerNorm and bf16 cast: N,
+   ``add_layernorm_kernel`` (``csrc/add_layernorm.cu``), at the cell's
+   shape (16 tiles x 1,024 tokens x D 1,024): the stream bit-equal to
+   ``x + h.float()`` (left as it was without ``h``) and the bf16 rows
+   within one bf16 step of the plain version, with the branch and without, timed in turns against the three PyTorch passes it replaces
+   (the mixed add, ``F.layer_norm``, the cast) and against its bound
+   (bytes: x and h read, x and y written once).  The flows path of step 18
+   must launch it twice a block, 48 times a forward.
 
 The next-to-last line of stdout is a JSON object with one entry per kernel.
 Its ``launches`` are those of the full-width paths' own runs (steps 4, 5, 7
@@ -4324,6 +4333,110 @@ def check_rel_attention(dev, report):
           f"{shared} bytes of shared memory a block", flush=True)
 
 
+def check_add_layernorm(dev, report):
+    """N: ``add_layernorm_kernel`` at the cell's shape against its plain
+    version, with the branch and with the stream alone (the stream
+    bit-equal, the rows within one bf16 step), timed in
+    turns against the three passes the module chain ran (``library_ms``:
+    ``x + h`` into a new stream, ``F.layer_norm`` in float32, the cast to
+    bf16; the same with the stream alone for block 0's norm1); the bound
+    counts x and h read and x and y written once (bytes).  The repeated
+    launches add h to the stream each time; h is small, so the stream
+    stays in range."""
+    import torch.nn.functional as F
+
+    from microbeseg_torch.ops.kernels import add_layernorm as al
+
+    rows, d = 16 * 1024, 1024
+    gen = torch.Generator(device=dev).manual_seed(0)
+    norm = torch.nn.LayerNorm(d, eps=1e-6).to(dev)
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.3 * torch.randn(d, generator=gen, device=dev))
+        norm.bias.copy_(0.2 * torch.randn(d, generator=gen, device=dev))
+    x = 0.5 + 3 * torch.randn(16, 1024, d, generator=gen, device=dev)
+    h = (0.01 * torch.randn(16, 1024, d, generator=gen, device=dev)).to(
+        torch.bfloat16)
+    w, b, eps = norm.weight, norm.bias, norm.eps
+    def against_plain(branch):
+        """One launch against the plain version: the stream bit-equal to
+        ``x + branch.float()`` (untouched without a branch), the rows within
+        one bf16 step of the result plus 2^-16 of the terms' scale where
+        they cancel (tests/test_torch_kernels_cuda.py::_add_ln_close);
+        the largest error and the count of values that differ."""
+        want_x = x.clone() if branch is None else x + branch.float()
+        want = al.add_layernorm_plain(x.clone(), branch, norm)
+        got = al.add_layernorm(x, branch, norm)
+        if not torch.equal(x, want_x):
+            raise AssertionError("add_layernorm: the stream differs from "
+                                 "x + h.float()" if branch is not None else
+                                 "add_layernorm: the stream alone changed")
+        err = (got.float() - want.float()).abs()
+        _, e = torch.frexp(torch.maximum(got.float().abs(),
+                                         want.float().abs()))
+        mean = x.mean(-1, keepdim=True)
+        rstd = torch.rsqrt(x.var(-1, unbiased=False, keepdim=True) + eps)
+        allowed = torch.ldexp(torch.ones_like(err), e - 8) + 2.0 ** -16 * (
+            w.abs() * rstd * (x.abs() + mean.abs()) + b.abs())
+        if bool((err > allowed).any()):
+            raise AssertionError("add_layernorm differs from plain by more "
+                                 f"than one bfloat16 step: {float(err.max())}")
+        return float(err.max()), int((got != want).sum())
+
+    with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16):
+        max_err, differ = against_plain(h)
+        alone_err, alone_differ = against_plain(None)
+
+        def replaced():
+            return F.layer_norm(x + h, (d,), w, b, eps).to(torch.bfloat16)
+
+        def replaced_alone():
+            return F.layer_norm(x, (d,), w, b, eps).to(torch.bfloat16)
+
+        times = {"ms": [], "library_ms": [], "alone_ms": [],
+                 "library_alone_ms": []}
+        fns = {"ms": lambda: al.add_layernorm(x, h, norm),
+               "library_ms": replaced,
+               "alone_ms": lambda: al.add_layernorm(x, None, norm),
+               "library_alone_ms": replaced_alone}
+        for name in ("ms", "library_ms", "library_ms", "ms", "alone_ms",
+                     "library_alone_ms", "library_alone_ms", "alone_ms"):
+            times[name].append(cuda_ms(fns[name], reps=50))
+        passes = dict(
+            add_ms=cuda_ms(lambda: x + h, 50),
+            layer_norm_ms=cuda_ms(lambda: F.layer_norm(x, (d,), w, b, eps),
+                                  50),
+            cast_ms=cuda_ms(lambda: x.to(torch.bfloat16), 50))
+        plain_ms = cuda_ms(lambda: al.add_layernorm_plain(x, h, norm), 50)
+    n = rows * d
+    b_h = bound(12 * n, 0, 1.0)
+    b_alone = bound(6 * n, 0, 1.0)
+    ms, alone_ms = min(times["ms"]), min(times["alone_ms"])
+    r = dict(source="csrc/add_layernorm.cu: add_layernorm_kernel",
+             replaces="none (the JAX package has no vision transformer); "
+             "the block's residual add, LayerNorm and autocast's cast",
+             shape=[16, 1024, d], max_abs_err=max_err,
+             values_differ=differ, alone_max_abs_err=alone_err,
+             alone_values_differ=alone_differ, ms=ms, turns=times,
+             plain_ms=plain_ms,
+             library_ms=min(times["library_ms"]), unfused_ms=passes,
+             unfused_sum_ms=sum(passes.values()), alone_ms=alone_ms,
+             library_alone_ms=min(times["library_alone_ms"]),
+             roofline_pct=100.0 * b_h["bound_ms"] / ms,
+             alone_roofline_pct=100.0 * b_alone["bound_ms"] / alone_ms,
+             ptxas=report.get("ptxas_add_layernorm", []), **b_h)
+    report.setdefault("kernels", {})["add_layernorm"] = r
+    print(f"N add_layernorm_kernel at {rows} x {d}: {ms:.4f} ms, bound "
+          f"{b_h['bound_ms']:.4f} ms ({b_h['bound_by']}), "
+          f"{r['roofline_pct']:.1f}% of it; the three passes it replaced "
+          f"{r['library_ms']:.4f} ms (add {passes['add_ms']:.4f}, LayerNorm "
+          f"{passes['layer_norm_ms']:.4f}, cast {passes['cast_ms']:.4f}); "
+          f"the stream alone {alone_ms:.4f} ms "
+          f"({r['alone_roofline_pct']:.1f}% of "
+          f"{b_alone['bound_ms']:.4f}) against {r['library_alone_ms']:.4f}; "
+          f"plain {plain_ms:.4f} ms; {differ} of {n} values one bf16 step "
+          f"off plain ({alone_differ} for the stream alone)", flush=True)
+
+
 def flows_path(dev, report):
     """Cellpose-SAM at its published widths through ``InferenceEngine.
     segment(label_type="flows")`` on 2048^2 frames of the benchmark's
@@ -4363,6 +4476,10 @@ def flows_path(dev, report):
         raise AssertionError(f"flows path: rel_attention launched "
                              f"{launches['rel_attention']} times, not 24 a "
                              "forward")
+    if launches["add_layernorm"] != 2 * launches["rel_attention"]:
+        raise AssertionError(f"flows path: add_layernorm launched "
+                             f"{launches['add_layernorm']} times, not 48 a "
+                             "forward")
     if launches["follow_flows_fallback"] or launches["flood_tiled"]:
         raise AssertionError(f"flows path launches: {launches}")
     profiling.reset()
@@ -4400,8 +4517,9 @@ def main() -> int:
                     help="also train the flagship 60 epochs on the "
                     "glutamicum split and score AJI+ on frames 40-49")
     ap.add_argument("--flows-only", action="store_true",
-                    help="build follow.cu, cc.cu and rel_attention.cu and "
-                    "run only F, A and the Cellpose-SAM flows path")
+                    help="build follow.cu, cc.cu, rel_attention.cu and "
+                    "add_layernorm.cu and run only F, A, N and the "
+                    "Cellpose-SAM flows path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4413,7 +4531,8 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     t0 = time.perf_counter()
-    logs = _build.build_all(("follow", "cc", "rel_attention")
+    logs = _build.build_all(("follow", "cc", "rel_attention",
+                             "add_layernorm")
                             if args.flows_only else _build.SOURCES)
     report["build_s"] = time.perf_counter() - t0
     report["ptxas_follow"] = ptxas_report(logs.get("follow", ""),
@@ -4424,9 +4543,15 @@ def main() -> int:
         logs.get("rel_attention", ""), "rel_attention_kernel")
     print(f"ptxas, rel_attention_kernel: {report['ptxas_rel_attention']}",
           flush=True)
+    # its two instances, 8 quads a lane (D up to 1,024)
+    report["ptxas_add_layernorm"] = ptxas_report(
+        logs.get("add_layernorm", ""), "add_layernorm_kernelILi8E")
+    print(f"ptxas, add_layernorm_kernel<8, *>: "
+          f"{report['ptxas_add_layernorm']}", flush=True)
     if args.flows_only:
         check_follow(dev, report)
         check_rel_attention(dev, report)
+        check_add_layernorm(dev, report)
         flows_path(dev, report)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -4442,6 +4567,7 @@ def main() -> int:
     check_kernels(dev, report)
     check_follow(dev, report)
     check_rel_attention(dev, report)
+    check_add_layernorm(dev, report)
     report["stream_handle_us"] = stream_handle_us(dev)
     print(f"stream handle for a launch, host us: "
           f"{report['stream_handle_us']}", flush=True)
@@ -4499,7 +4625,10 @@ def main() -> int:
                            "planes_ms", "call_ms", "points",
                            "points_differ", "roofline_pct", "rms_err",
                            "library_rms_err", "sdpa_alone_ms",
-                           "shared_bytes")})
+                           "shared_bytes", "unfused_ms", "alone_ms",
+                           "library_alone_ms", "alone_roofline_pct",
+                           "values_differ", "alone_max_abs_err",
+                           "alone_values_differ")})
                for name, r in report["kernels"].items()]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -32,7 +32,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("flood", "flood_frame", "cc", "matmul", "epilogue", "follow",
-           "rel_attention")
+           "rel_attention", "add_layernorm")
 
 # launches per kernel wrapper (plain integers; reset with reset_launches)
 LAUNCHES: Dict[str, int] = {"flood_packed": 0, "flood_packed_cluster": 0,
@@ -54,7 +54,10 @@ LAUNCHES: Dict[str, int] = {"flood_packed": 0, "flood_packed_cluster": 0,
                             "follow_flows": 0, "follow_flows_fallback": 0,
                             # Cellpose-SAM's attention with its relative
                             # terms (csrc/rel_attention.cu)
-                            "rel_attention": 0}
+                            "rel_attention": 0,
+                            # its residual add, LayerNorm and bf16 cast
+                            # (csrc/add_layernorm.cu)
+                            "add_layernorm": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # an engine on a mesh launches from one host thread per device

@@ -40,17 +40,27 @@ logits in registers and writes the heads merged; on the CPU
 ``rel_pos_bias`` builds as its additive mask.  The span
 ``mseg.vit.attention`` marks the attention of each block, the relative
 term included.
+
+On the card the blocks also run as one chain (``run_blocks``): each
+residual add, the LayerNorm after it and autocast's bf16 cast of that
+LayerNorm's output are one launch of ``ops/kernels/add_layernorm.py``
+(``csrc/add_layernorm.cu``), which updates the float32 stream in place,
+2 * depth launches a forward; it raises on what it does not take, as
+``rel_attention`` does.  On the CPU each block's ``forward`` runs as
+written.  The parameters keep their names either way.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from microbeseg_torch.config import CellposeSAMConfig
+from microbeseg_torch.ops.kernels.add_layernorm import add_layernorm
 from microbeseg_torch.ops.kernels.rel_attention import rel_attention
 from microbeseg_torch.utils.profiling import span
 
@@ -151,6 +161,23 @@ class Block(nn.Module):
         return x + self.mlp(self.norm2(x))
 
 
+def run_blocks(blocks: nn.ModuleList, x: torch.Tensor,
+               step: Callable) -> torch.Tensor:
+    """The blocks' ``forward`` in sequence, as one chain of ``step(x, h,
+    norm) -> rows`` (``x += h`` in place where ``h`` is given, then the
+    rows ``norm(x)``): block 0's norm1 on the stream alone, each
+    attention's output into its block's norm2, each MLP's into the next
+    block's norm1; the last block's MLP output is a plain add, since the
+    neck reads the float32 stream."""
+    y = step(x, None, blocks[0].norm1)
+    for i, blk in enumerate(blocks):
+        y = step(x, blk.attn(y), blk.norm2)
+        h = blk.mlp(y)
+        if i + 1 == len(blocks):
+            return x + h
+        y = step(x, h, blocks[i + 1].norm1)
+
+
 class LayerNorm2d(nn.Module):
     """LayerNorm over the channels of (B, C, H, W) at each position."""
 
@@ -190,8 +217,11 @@ class CellposeSAM(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         enc = self.encoder
         x = enc.patch_embed(x) + enc.pos_embed
-        for blk in enc.blocks:
-            x = blk(x)
+        if x.is_cuda:
+            x = run_blocks(enc.blocks, x.contiguous(), add_layernorm)
+        else:
+            for blk in enc.blocks:
+                x = blk(x)
         x = enc.neck(x.permute(0, 3, 1, 2))
         return F.pixel_shuffle(self.out(x), self.cfg.patch_size)
 

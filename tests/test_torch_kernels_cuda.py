@@ -984,3 +984,105 @@ def test_cellpose_sam_engine_on_a_mesh_of_every_device(dev, monkeypatch):
     assert err <= 0.01 * np.sqrt(np.mean(want ** 2))
     masks = engine.segment(frames)
     assert masks.shape == frames.shape and masks.dtype == np.uint16
+
+
+def _add_ln_inputs(dev, shape, d, seed):
+    """A LayerNorm over ``d`` on ``dev`` with drawn affine parameters (eps
+    1e-6, as the ViT's), a float32 stream of a few units off zero and a
+    bf16 branch, both ``shape + (d,)``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    norm = torch.nn.LayerNorm(d, eps=1e-6).to(dev)
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.3 * torch.randn(d, generator=gen, device=dev))
+        norm.bias.copy_(0.2 * torch.randn(d, generator=gen, device=dev))
+    x = 0.5 + 3 * torch.randn(shape + (d,), generator=gen, device=dev)
+    h = torch.randn(shape + (d,), generator=gen, device=dev).to(
+        torch.bfloat16)
+    return norm, x, h
+
+
+def _add_ln_close(got, want, x, norm):
+    """``got`` and ``want``, the bf16 rows of two float32 LayerNorms of the
+    stream ``x``, lie within one bf16 step of each other, plus 2^-16 of the
+    terms' scale |w| rstd (|x| + |mean|) + |b|: the two sum the mean and the
+    variance in another order, which moves a float32 value by a few of its
+    own steps at that scale, and where w (x - mean) rstd and b nearly cancel
+    that is more than one bf16 step of the small result."""
+    mean = x.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(x.var(-1, unbiased=False, keepdim=True) + norm.eps)
+    scale = (norm.weight.abs() * rstd * (x.abs() + mean.abs())
+             + norm.bias.abs())
+    err = (got.float() - want.float()).abs()
+    step = _ulp(torch.maximum(got.float().abs(), want.float().abs()),
+                torch.bfloat16)
+    allowed = step + scale * 2.0 ** -16
+    assert bool((err <= allowed).all()), float((err / allowed).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,d", [
+    ((16, 32, 32), 1024),   # the cell's forward: 16 tiles of 1,024 tokens
+    ((7, 11, 13), 1024),    # 1,001 rows: no whole pass of a block's warps
+    ((3, 37), 768),         # SAM's ViT-B
+    ((5, 9), 72),           # fewer quads than a warp's lanes
+    ((1, 3), 1016)])        # a lane's last quad cut
+@pytest.mark.parametrize("with_h", [True, False], ids=["branch", "stream"])
+def test_add_layernorm_matches_plain(dev, shape, d, with_h):
+    """The kernel against its plain version: the stream bit-equal to
+    ``x + h.float()`` (untouched without h), the bf16 rows within one bf16
+    step of ``F.layer_norm``'s rounded once (``_add_ln_close``), one launch
+    counted."""
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.ops.kernels.add_layernorm import (
+        add_layernorm, add_layernorm_plain)
+
+    norm, x, h = _add_ln_inputs(dev, shape, d, d + len(shape))
+    h = h if with_h else None
+    with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16):
+        want_x = x + h.float() if with_h else x.clone()
+        want = add_layernorm_plain(x.clone(), h, norm)
+        before = _build.LAUNCHES["add_layernorm"]
+        got = add_layernorm(x, h, norm)
+        torch.cuda.synchronize()
+    assert _build.LAUNCHES["add_layernorm"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(x, want_x)
+    _add_ln_close(got, want, x, norm)
+
+
+@pytest.mark.cuda
+def test_cellpose_sam_forward_takes_add_layernorm(dev):
+    """A published-width forward of two 256^2 tiles under inference_mode
+    and bf16 autocast launches add_layernorm twice a block (48); its fields
+    agree with the module chain's (each block's ``forward``: the residual
+    adds, LayerNorm and autocast's casts as PyTorch runs them) within the
+    attention test's 1% of their RMS."""
+    from microbeseg_torch.config import CellposeSAMConfig
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models import vit_sam
+
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = vit_sam.build_cellpose_sam(CellposeSAMConfig()).eval()
+        for blk in model.encoder.blocks:
+            torch.nn.init.normal_(blk.attn.rel_pos_h, std=0.5)
+            torch.nn.init.normal_(blk.attn.rel_pos_w, std=0.5)
+            for norm in (blk.norm1, blk.norm2):
+                torch.nn.init.normal_(norm.weight, 1.0, 0.2)
+                torch.nn.init.normal_(norm.bias, 0.0, 0.1)
+        x = torch.rand(2, 3, 256, 256)
+
+    with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16):
+        before = dict(_build.LAUNCHES)
+        got = model(x)
+        assert _build.LAUNCHES["add_layernorm"] == before["add_layernorm"] + 48
+        assert _build.LAUNCHES["rel_attention"] == before["rel_attention"] + 24
+        enc = model.encoder
+        t = (enc.patch_embed(x) + enc.pos_embed).contiguous()
+        for blk in enc.blocks:
+            t = blk(t)
+        want = torch.nn.functional.pixel_shuffle(
+            model.out(enc.neck(t.permute(0, 3, 1, 2))),
+            model.cfg.patch_size)
+    assert _build.LAUNCHES["add_layernorm"] == before["add_layernorm"] + 48
+    assert _rms(got.float() - want.float()) <= 0.01 * _rms(want)

@@ -279,3 +279,149 @@ def test_the_published_configuration():
     assert 300e6 < n < 310e6
     assert cfg.grid ** 2 == 1024
     assert model.encoder.blocks[0].attn.rel_pos_h.shape == (63, 64)
+
+
+def _norm_and_stream(d, seed, shape=(2, 5, 7)):
+    """A LayerNorm over ``d`` with drawn affine parameters (eps 1e-6), a
+    float32 stream and a bf16 branch of ``shape + (d,)``."""
+    from microbeseg_torch.models.vit_sam import LN_EPS
+
+    gen = torch.Generator().manual_seed(seed)
+    norm = torch.nn.LayerNorm(d, eps=LN_EPS)
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.3 * torch.randn(d, generator=gen))
+        norm.bias.copy_(0.2 * torch.randn(d, generator=gen))
+    x = 1.5 + 2 * torch.randn(shape + (d,), generator=gen)
+    h = torch.randn(shape + (d,), generator=gen).to(torch.bfloat16)
+    return norm, x, h
+
+
+@pytest.mark.parametrize("with_h", [True, False], ids=["branch", "stream"])
+def test_add_layernorm_plain_is_the_module_chain(with_h):
+    """The kernel's plain version against the module chain it replaces:
+    ``x + h`` (float32, one rounding), the LayerNorm in float32, and the
+    bf16 cast that autocast applies at the next linear layer (an identity
+    ``nn.Linear`` under bf16 autocast, exact on bf16 values), bit for bit;
+    the stream updated in place."""
+    from microbeseg_torch.ops.kernels.add_layernorm import add_layernorm_plain
+
+    d = 64
+    norm, x, h = _norm_and_stream(d, 11)
+    h = h if with_h else None
+    eye = torch.nn.Linear(d, d, bias=False)
+    with torch.no_grad():
+        eye.weight.copy_(torch.eye(d))
+    with torch.no_grad(), torch.autocast("cpu", torch.bfloat16):
+        stream = x + h if with_h else x.clone()
+        rows = norm(stream)
+        assert rows.dtype == torch.float32
+        want = eye(rows)
+        got_x = x.clone()
+        got = add_layernorm_plain(got_x, h, norm)
+        assert got.dtype == want.dtype == torch.bfloat16
+        assert torch.equal(eye(got), want)
+    assert torch.equal(got, want)
+    assert torch.equal(got_x, stream)
+    if with_h:
+        assert torch.equal(got_x, x + h.float())
+
+
+@pytest.mark.parametrize("step,autocast", [("plain", True),
+                                           ("modules", False)])
+def test_card_route_block_order_is_the_forward(step, autocast):
+    """The card's chain of add-norms (``run_blocks``: block 0's norm1 on
+    the stream alone, attention into norm2, MLP into the next norm1, the
+    last MLP a plain add) with the kernel's plain version under bf16
+    autocast, and with the modules in float32, gives
+    ``CellposeSAM.forward``'s output (the CPU route, each block's
+    ``forward``) bit for bit, in 2 * depth steps."""
+    from microbeseg_torch.models import vit_sam
+    from microbeseg_torch.ops.kernels.add_layernorm import add_layernorm_plain
+
+    cfg = CellposeSAMConfig(**dict(TINY, depth=3))
+    model = build_cellpose_sam(cfg).eval()
+    model.load_state_dict(seeded_state(cfg, 12))
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(13))
+    calls = []
+
+    def plain(x, h, norm):
+        calls.append(norm)
+        return add_layernorm_plain(x, h, norm)
+
+    def modules(x, h, norm):
+        calls.append(norm)
+        if h is not None:
+            x.add_(h)
+        return norm(x)
+
+    enc = model.encoder
+    with torch.no_grad(), torch.autocast("cpu", torch.bfloat16,
+                                         enabled=autocast):
+        want = model(x)
+        t = enc.patch_embed(x) + enc.pos_embed
+        t = vit_sam.run_blocks(enc.blocks, t.contiguous(),
+                               plain if step == "plain" else modules)
+        got = F.pixel_shuffle(model.out(enc.neck(t.permute(0, 3, 1, 2))),
+                              cfg.patch_size)
+    assert torch.equal(got, want)
+    assert calls == [n for b in enc.blocks for n in (b.norm1, b.norm2)]
+
+
+def test_add_layernorm_takes_cuda_tensors_only():
+    """The wrapper runs the kernel alone: CPU tensors are refused, since
+    the CPU runs each block's ``forward``."""
+    from microbeseg_torch.ops.kernels.add_layernorm import add_layernorm
+
+    norm, x, h = _norm_and_stream(64, 14)
+    with torch.no_grad(), torch.autocast("cpu", torch.bfloat16):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            add_layernorm(x, h, norm)
+
+
+ADD_LN_REFUSALS = [
+    ("ok", None), ("ok_stream_alone", None),
+    ("dim_not_8", "multiple of 8"), ("dim_beyond_registers", "up to 1024"),
+    ("float64_stream", "x must be float32"),
+    ("strided_stream", "x must be float32, contiguous"),
+    ("float32_branch", "h must be bfloat16"),
+    ("branch_shape", "h must be bfloat16 of x's shape"),
+    ("no_affine", "affine weight and bias"),
+    ("float64_norm", "weight and bias must be float32"),
+    ("grad", "no backward"), ("autocast_off", "autocast off"),
+    ("autocast_float16", "autocast off")]
+
+
+@pytest.mark.parametrize("case,match", ADD_LN_REFUSALS,
+                         ids=[c for c, _ in ADD_LN_REFUSALS])
+def test_add_layernorm_refusal(case, match):
+    """What the kernel does not take, named (``refusal`` reads shapes,
+    types, strides, autograd and autocast only, so it runs on CPU
+    tensors); ``add_layernorm`` raises on it."""
+    from microbeseg_torch.ops.kernels.add_layernorm import refusal
+
+    d = {"dim_not_8": 60, "dim_beyond_registers": 1032}.get(case, 64)
+    norm, x, h = _norm_and_stream(d, 15, shape=(3, 4))
+    if case == "ok_stream_alone":
+        h = None
+    if case == "float64_stream":
+        x = x.double()
+    if case == "strided_stream":
+        x = F.pad(x, (0, 8))[..., :-8]
+    if case == "float32_branch":
+        h = h.float()
+    if case == "branch_shape":
+        h = h[:, :-1]
+    if case == "no_affine":
+        norm = torch.nn.LayerNorm(d, elementwise_affine=False)
+    if case == "float64_norm":
+        norm = norm.double()
+    if case == "grad":
+        x.requires_grad_(True)
+    dtype = torch.float16 if case == "autocast_float16" else torch.bfloat16
+    with torch.set_grad_enabled(case == "grad"), torch.autocast(
+            "cpu", dtype, enabled=case != "autocast_off"):
+        why = refusal(x, h, norm)
+    if match is None:
+        assert why is None
+    else:
+        assert why is not None and re.search(match, why), why
