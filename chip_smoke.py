@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``microbeseg_torch``) on one GPU.
 
     python3 chip_smoke.py [--out results.json] [--profile-eval]
-                          [--train-quality] [--flows-only]
+                          [--train-quality] [--flows-only] [--ais-only]
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from ``microbeseg_torch/csrc`` (one nvcc per
@@ -233,11 +233,23 @@
    (the mixed add, ``F.layer_norm``, the cast) and against its bound
    (bytes: x and h read, x and y written once).  The flows path of step 18
    must launch it twice a block, 48 times a forward.
+21. muSAM's automatic instance segmentation: A at the two grids its cell
+   gives it (200 maps a head of 14 x 14 windows, 8 of the 64 x 64 grid;
+   16 heads of 64) against the float32 plain path at step 19's bar, each
+   timed against bias + SDPA and its bound; then ``InferenceEngine
+   .segment`` with ``label_type="ais"`` on 8 frames of 2048^2 of the
+   benchmark's ``usam_tiled2048`` mix with its seeded weights, the launch
+   counts reset just before the call: A 24 times a forward (20 at g 14 and
+   4 at g 64 by the ``attention_maps.g{g}`` counters), N 48 times, K2 and
+   ``ranked_components``, no flows, K1 or fallback kernel; masks found
+   against the cells drawn.  ``--ais-only`` builds ``flood_frame.cu``,
+   ``cc.cu``, ``rel_attention.cu`` and ``add_layernorm.cu`` and runs only
+   this step.
 
 The next-to-last line of stdout is a JSON object with one entry per kernel.
 Its ``launches`` are those of the full-width paths' own runs (steps 4, 5, 7
-without the narrow model, 8, 9, 10, 11, 12, 13, 15, 16, 17 and 18's
-``segment``); what the side
+without the narrow model, 8, 9, 10, 11, 12, 13, 15, 16, 17, 18's and
+21's ``segment``); what the side
 runs launched (K3 and the general K4 as the labelling function in step 4, the
 narrow model in step 7, step 14) stands apart as ``side_run_launches``.  Each wrapper's host enqueue time and
 the device time of every kernel it launches (``torch.profiler``) stand under
@@ -4333,6 +4345,70 @@ def check_rel_attention(dev, report):
           f"{shared} bytes of shared memory a block", flush=True)
 
 
+def check_rel_attention_grids(dev, report):
+    """A at the shapes the muSAM cell gives it (``usam-vitl-tiled2048``: 8
+    tiles of 1024^2 a forward, 16 heads of 64): 200 maps a head of 196
+    tokens (25 windows of 14 x 14 a tile) and 8 of 4,096 (the 64 x 64
+    grid of the global blocks), each against the float32 plain path at
+    the 1%-of-RMS bar of ``check_rel_attention`` and timed against the
+    path it replaced (the bf16 bias of ``rel_pos_bias``, then
+    ``scaled_dot_product_attention``); the bound counts the two products
+    (operations) and q, k, v and the output once (bytes)."""
+    import torch.nn.functional as F
+
+    from microbeseg_torch.models import vit_sam
+    from microbeseg_torch.ops.kernels import rel_attention as ra
+
+    heads, hd = 16, 64
+    out = {}
+    for B, g in ((200, 14), (8, 64)):
+        n = g * g
+        gen = torch.Generator(device=dev).manual_seed(g)
+        qkv = (0.5 * torch.randn(B, n, 3 * heads * hd, generator=gen,
+                                 device=dev)).to(torch.bfloat16)
+        th, tw = (0.5 * torch.randn(2 * g - 1, hd, generator=gen,
+                                    device=dev) for _ in range(2))
+        q, k, v = ra.split_heads(qkv, heads)
+
+        def replaced():
+            bias = vit_sam.rel_pos_bias(q, th, tw, g)
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+            return o.transpose(1, 2).reshape(B, n, heads * hd)
+
+        with torch.inference_mode():
+            got = ra.rel_attention(qkv, th, tw, heads, g)
+            want = ra.rel_attention_plain(qkv.float(), th, tw, heads, g)
+            err = (got.float() - want).abs()
+            rms = float(want.pow(2).mean().sqrt())
+            rms_err = float(err.pow(2).mean().sqrt())
+            max_err = float(err.max())
+            del want, err
+            if rms_err > 0.01 * rms:
+                raise AssertionError(f"rel_attention at g {g}: RMS error "
+                                     f"{rms_err} of RMS {rms}")
+            times = {"ms": [], "library_ms": []}
+            for name in ("ms", "library_ms", "library_ms", "ms"):
+                fn = (lambda: ra.rel_attention(qkv, th, tw, heads, g)) \
+                    if name == "ms" else replaced
+                times[name].append(cuda_ms(fn, reps=10))
+        maps = B * heads
+        b = bound(maps * 8 * n * hd, maps * 4 * n * n * hd,
+                  TENSOR_FLOPS_PER_S)
+        ms = min(times["ms"])
+        out[f"g{g}"] = dict(shape=[B, heads, n, hd], rms=rms,
+                            rms_err=rms_err, max_abs_err=max_err, ms=ms,
+                            turns=times, library_ms=min(times["library_ms"]),
+                            roofline_pct=100.0 * b["bound_ms"] / ms, **b)
+        print(f"A rel_attention_kernel at {B} x {heads} maps of {n} tokens "
+              f"(g {g}), head {hd}: {ms:.4f} ms, bound {b['bound_ms']:.4f} "
+              f"ms ({b['bound_by']}), {out[f'g{g}']['roofline_pct']:.1f}% "
+              f"of it; bias + SDPA {out[f'g{g}']['library_ms']:.4f} ms; "
+              f"RMS error {rms_err:.3g} of RMS {rms:.3g}, max "
+              f"{max_err:.3g}", flush=True)
+        torch.cuda.empty_cache()
+    report["rel_attention_grids"] = out
+
+
 def check_add_layernorm(dev, report):
     """N: ``add_layernorm_kernel`` at the cell's shape against its plain
     version, with the branch and with the stream alone (the stream
@@ -4506,6 +4582,94 @@ def flows_path(dev, report):
     return launches
 
 
+def ais_path(dev, report):
+    """muSAM's automatic instance segmentation at its published widths
+    through ``InferenceEngine.segment(label_type="ais")`` on 8 frames of
+    2048^2 of the benchmark's usam_tiled2048 mix (tiles of 1024, overlap
+    256, 8 a forward), with the benchmark's seeded weights.  With the
+    launch counts reset just before the call: A 24 times a forward (20 at
+    g 14, 4 at g 64, by the ``attention_maps.g{g}`` counters of a second,
+    profiled call), N 48 times, and the rest of the mix's ``must_launch``
+    (K2, ``flood_tiled``, and ``ranked_components`` for the watershed) and
+    none of its ``must_not_launch`` (the flows, K1 and fallback routes);
+    the masks found against the cells drawn, a stack's
+    seconds and the device seconds by span."""
+    from benchmark.families import micro_sam as fam
+    from benchmark.harness import gen
+    from microbeseg_torch.config import InferConfig, MicroSAMConfig
+    from microbeseg_torch.inference.engine import InferenceEngine
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models.unetr import build_micro_sam_ais
+    from microbeseg_torch.utils import profiling
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    mix = json.loads(Path("benchmark/traffic/usam_tiled2048.json")
+                     .read_text())
+    frames = gen.frames(mix, 7, mix["stack"], dev)
+    cells = gen.object_counts(mix, mix["stack"],
+                              gen.generator(7, 1, dev)).tolist()
+    with torch.device(dev):
+        model = build_micro_sam_ais(MicroSAMConfig())
+    model.load_state_dict(fam.make_weights(fam.PUBLISHED, 7, dev))
+    engine = InferenceEngine(model, "ais", cfg=InferConfig(**mix["infer"]),
+                             device=dev)
+    forwards = []
+    engine.models[0].register_forward_hook(
+        lambda mod, args, out: forwards.append(out.shape[0]))
+    engine.segment(frames[:1])
+    forwards.clear()
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    masks = engine.segment(frames)
+    seg_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    n_fwd, tiles = len(forwards), sum(forwards)
+    require_launches(launches, mix["must_launch"], "the ais path")
+    if launches["rel_attention"] != 24 * n_fwd:
+        raise AssertionError(f"ais path: rel_attention launched "
+                             f"{launches['rel_attention']} times in "
+                             f"{n_fwd} forwards, not 24 a forward")
+    if launches["add_layernorm"] != 48 * n_fwd:
+        raise AssertionError(f"ais path: add_layernorm launched "
+                             f"{launches['add_layernorm']} times in "
+                             f"{n_fwd} forwards, not 48 a forward")
+    for name in mix["must_not_launch"]:
+        if launches.get(name):
+            raise AssertionError(f"ais path launched {name}: {launches}")
+    forwards.clear()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        again = engine.segment(frames)
+    spans = profiling.summary()
+    counters = spans["counters"]
+    if not np.array_equal(again, masks):
+        raise AssertionError("ais path: a second call gave other masks")
+    want = {"attention_maps.g14": 20 * 25 * 16 * tiles,
+            "attention_maps.g64": 4 * 16 * tiles}
+    got = {k: counters.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"ais path: attention maps by grid {got}, "
+                             f"not {want}")
+    found = [int(m.max()) for m in masks]
+    out = dict(launches={k: v for k, v in launches.items() if v},
+               frames=len(frames), forwards=n_fwd, tiles=tiles,
+               seconds=seg_s, mpx_per_s=masks.size / 1e6 / seg_s,
+               cells_drawn=cells, masks_found=found,
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               device_s={k: v["device_s"] for k, v in spans["spans"].items()},
+               counters=counters, phase_s=time.perf_counter() - t_phase)
+    report["ais_path"] = out
+    print(f"ais path: {len(frames)} frames of 2048^2 in {seg_s:.2f} s "
+          f"({out['mpx_per_s']:.1f} Mpx/s), {n_fwd} forwards of {tiles} "
+          f"tiles; masks {found} for cells drawn {cells}; device s by span "
+          f"{out['device_s']}; counters {counters}; launches "
+          f"{out['launches']}; peak {out['peak_bytes'] / 2**30:.2f} GiB",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -4520,6 +4684,10 @@ def main() -> int:
                     help="build follow.cu, cc.cu, rel_attention.cu and "
                     "add_layernorm.cu and run only F, A, N and the "
                     "Cellpose-SAM flows path")
+    ap.add_argument("--ais-only", action="store_true",
+                    help="build flood_frame.cu, cc.cu, rel_attention.cu and "
+                    "add_layernorm.cu and run only A at muSAM's two grids "
+                    "and the muSAM ais path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4531,9 +4699,11 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     t0 = time.perf_counter()
-    logs = _build.build_all(("follow", "cc", "rel_attention",
-                             "add_layernorm")
-                            if args.flows_only else _build.SOURCES)
+    logs = _build.build_all(
+        ("follow", "cc", "rel_attention", "add_layernorm")
+        if args.flows_only else
+        ("flood_frame", "cc", "rel_attention", "add_layernorm")
+        if args.ais_only else _build.SOURCES)
     report["build_s"] = time.perf_counter() - t0
     report["ptxas_follow"] = ptxas_report(logs.get("follow", ""),
                                           "follow_flows_kernel")
@@ -4558,6 +4728,14 @@ def main() -> int:
             Path(args.out).write_text(json.dumps(report, indent=1))
         print(json.dumps({"ok": True, "flows_only": True}))
         return 0
+    if args.ais_only:
+        check_rel_attention_grids(dev, report)
+        ais_path(dev, report)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(report, indent=1))
+        print(json.dumps({"ok": True, "ais_only": True}))
+        return 0
     report["ptxas"] = {k: [ln for ln in v.splitlines() if "Used" in ln]
                        for k, v in logs.items()}
     report["ptxas_k3"] = ptxas_report(logs.get("cc", ""), "cc_tile_kernel")
@@ -4567,6 +4745,7 @@ def main() -> int:
     check_kernels(dev, report)
     check_follow(dev, report)
     check_rel_attention(dev, report)
+    check_rel_attention_grids(dev, report)
     check_add_layernorm(dev, report)
     report["stream_handle_us"] = stream_handle_us(dev)
     print(f"stream handle for a launch, host us: "
@@ -4589,6 +4768,7 @@ def main() -> int:
     gui_launches = gui_path(dev, report, model)
     remat_launches = remat_path(dev, report)
     flows_launches = flows_path(dev, report)
+    ais_launches = ais_path(dev, report)
     report["total_s"] = time.perf_counter() - t0
     # launches: those of the full-width paths' own runs (crop, tiled frame,
     # int8 crop, int8 tiled frame, inference CLI, evaluation, labels), each
@@ -4597,7 +4777,7 @@ def main() -> int:
     driven = [crop_launches, big_launches, *int8_launches, cli_launches,
               serve_launches, store_launches, crop_gen_launches,
               eval_launches, label_launches, train_launches, dp_launches,
-              gui_launches, remat_launches, flows_launches]
+              gui_launches, remat_launches, flows_launches, ais_launches]
     launches = {k: sum(d[k] for d in driven) for k in _build.LAUNCHES}
     if launches["watershed_route"]:
         raise AssertionError("the watershed route ran on a main path")
@@ -4606,7 +4786,7 @@ def main() -> int:
     report["launches_by_path"] = dict(zip(
         ("crops", "frames", "int8_crops", "int8_frame", "cli", "serve",
          "store", "crop_generator", "eval", "labels", "train", "dp",
-         "gui", "remat", "flows"), driven))
+         "gui", "remat", "flows", "ais"), driven))
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=launches[name],
                     side_run_launches=side[name],

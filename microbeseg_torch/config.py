@@ -84,7 +84,10 @@ class CellposeSAMConfig:
     image encoder with patches of 8 px, global attention with decomposed
     relative positions in every block, SAM's neck, and a readout of
     ``nout`` fields (dY, dX, cell probability) through a 1x1 convolution
-    and a pixel shuffle.  The defaults are the published values."""
+    and a pixel shuffle.  The defaults are the published values.
+    ``window_size`` 0 is global attention in every block; otherwise the
+    blocks not in ``global_attn_indexes`` attend within windows of that
+    many tokens a side (SAM's windowed blocks)."""
 
     embed_dim: int = 1024
     depth: int = 24
@@ -95,19 +98,70 @@ class CellposeSAMConfig:
     neck_dim: int = 256
     nout: int = 3
     ch_in: int = 3
+    window_size: int = 0
+    global_attn_indexes: Tuple[int, ...] = ()
 
     def __post_init__(self):
-        if self.embed_dim % self.num_heads:
-            raise ValueError(f"embed_dim {self.embed_dim} is not a multiple "
-                             f"of num_heads {self.num_heads}")
-        if self.img_size % self.patch_size:
-            raise ValueError(f"img_size {self.img_size} is not a multiple "
-                             f"of patch_size {self.patch_size}")
+        _check_encoder(self)
 
     @property
     def grid(self) -> int:
         """Tokens along each side of an input."""
         return self.img_size // self.patch_size
+
+
+@dataclass(frozen=True)
+class MicroSAMConfig:
+    """Architecture of muSAM's automatic instance segmentation (Archit et
+    al., Nature Methods 2025; computational-cell-analytics/micro-sam
+    ``instance_segmentation.py::get_unetr``): SAM's ViT-L image encoder
+    (Kirillov et al. 2023, ``build_sam.py::build_sam_vit_l``: 16 px
+    patches, windows of 14 tokens, global attention in blocks 5, 11, 17
+    and 23, the neck to 256 channels) and torch_em's UNETR decoder without
+    skip connections, ``decoder_features`` from its base to its last
+    level, ``out_channels`` sigmoid fields (foreground, centre distance,
+    boundary distance).  The defaults are the published values."""
+
+    embed_dim: int = 1024
+    depth: int = 24
+    num_heads: int = 16
+    mlp_dim: int = 4096
+    patch_size: int = 16
+    img_size: int = 1024
+    neck_dim: int = 256
+    ch_in: int = 3
+    window_size: int = 14
+    global_attn_indexes: Tuple[int, ...] = (5, 11, 17, 23)
+    decoder_features: Tuple[int, ...] = (512, 256, 128, 64)
+    out_channels: int = 3
+
+    def __post_init__(self):
+        _check_encoder(self)
+        # the encoder's grid doubles once a decoder level and once more
+        # after it (deconv_out): the four deconvolutions reach the input
+        if self.grid * 16 != self.img_size or len(self.decoder_features) != 4:
+            raise ValueError(f"a UNETR decoder of {self.decoder_features} "
+                             f"upsamples a grid by 16: img_size "
+                             f"{self.img_size} needs patch_size 16")
+
+    @property
+    def grid(self) -> int:
+        """Tokens along each side of an input."""
+        return self.img_size // self.patch_size
+
+
+def _check_encoder(cfg) -> None:
+    if cfg.embed_dim % cfg.num_heads:
+        raise ValueError(f"embed_dim {cfg.embed_dim} is not a multiple "
+                         f"of num_heads {cfg.num_heads}")
+    if cfg.img_size % cfg.patch_size:
+        raise ValueError(f"img_size {cfg.img_size} is not a multiple "
+                         f"of patch_size {cfg.patch_size}")
+    if cfg.window_size < 0 or not all(
+            0 <= i < cfg.depth for i in cfg.global_attn_indexes):
+        raise ValueError(f"window_size {cfg.window_size} and "
+                         f"global_attn_indexes {cfg.global_attn_indexes}: "
+                         f"a size >= 0 and blocks 0 to {cfg.depth - 1}")
 
 
 @dataclass(frozen=True)
@@ -167,6 +221,16 @@ class InferConfig:
     flow_threshold: float = 0.4
     min_size: int = 15
     max_size_fraction: float = 0.4
+    # muSAM's automatic instance segmentation (label_type "ais"), the
+    # defaults of micro-sam's InstanceSegmentationWithDecoder.generate:
+    # seeds where both smoothed distances lie below their thresholds, the
+    # mask where the smoothed foreground lies above its own, and the
+    # Gaussian sigmas of the foreground and of the two distances
+    center_distance_threshold: float = 0.5
+    boundary_distance_threshold: float = 0.5
+    foreground_threshold: float = 0.5
+    foreground_smoothing: float = 1.0
+    distance_smoothing: float = 1.6
 
 
 @dataclass(frozen=True)

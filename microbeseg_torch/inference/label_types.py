@@ -20,6 +20,16 @@ exists.  A new label type is one new entry.
   cell probability) (B, H, W, 3); Cellpose's flow dynamics
   (``ops/flows.py``).  Test-time augmentation, int8 and scaling are
   refused.
+- ``ais`` (muSAM's automatic instance segmentation, ``models/unetr.py``):
+  each frame min-max scaled to the integers 0..255 (micro-sam's
+  ``_to_image``), every frame tiled with tiles of the network's input
+  size; the one channel
+  replicated to three and standardised with SAM's pixel mean and std, a
+  padded pixel 0 after that (the frame is padded with NaN, which the
+  standardisation takes to 0, as SAM pads); one field (foreground, centre
+  distance, boundary distance) (B, H, W, 3); torch_em's seeded watershed
+  (``ops/postprocessing.ais_postprocessing``).  Test-time augmentation,
+  int8, scaling and tiles of another size are refused.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch
 from microbeseg_torch.config import InferConfig
 from microbeseg_torch.ops.flows import flows_postprocessing
 from microbeseg_torch.ops.postprocessing import (
+    ais_postprocessing,
     boundary_postprocessing,
     distance_postprocessing,
     distance_postprocessing_grid,
@@ -67,8 +78,36 @@ def normalize99(x: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(x))
 
 
+# SAM's pixel mean and std (segment_anything/modeling/sam.py), on [0, 255]
+SAM_PIXEL_MEAN = (123.675, 116.28, 103.53)
+SAM_PIXEL_STD = (58.395, 57.12, 57.375)
+
+
+def normalize_to_255(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) float32 -> whole numbers 0..255 per frame: torch_em's
+    ``normalize`` ((x - min) / (max - min + 1e-7)), times 255, cut to an
+    integer as micro-sam's ``_to_image`` casts to uint8."""
+    mn = x.amin(dim=(1, 2), keepdim=True)
+    d = x.amax(dim=(1, 2), keepdim=True) - mn
+    return torch.floor((x - mn) / (d + 1e-7) * 255.0)
+
+
 def _accept(model: torch.nn.Module, cfg: InferConfig) -> None:
     pass
+
+
+def _refuse_tiled(label_type: str, size: int, cfg: InferConfig) -> None:
+    """Refuse settings a path whose tiles are the network's input does not
+    run: tiles of another size, TTA, int8, scaling."""
+    if cfg.tile_size != size:
+        raise ValueError(f"label_type {label_type!r}: tile_size must be the "
+                         f"network's input size {size}, got "
+                         f"{cfg.tile_size}")
+    bad = [k for k, v in (("tta", cfg.tta), ("quantize", cfg.quantize),
+                          ("scale_factor", cfg.scale_factor != 1))
+           if v]
+    if bad:
+        raise ValueError(f"label_type {label_type!r} does not run {bad}")
 
 
 def _check_flows(model: torch.nn.Module, cfg: InferConfig) -> None:
@@ -78,15 +117,18 @@ def _check_flows(model: torch.nn.Module, cfg: InferConfig) -> None:
     if size is None:
         raise ValueError("label_type 'flows' needs a Cellpose-SAM model "
                          "(models/vit_sam.py)")
-    if cfg.tile_size != size:
-        raise ValueError(f"label_type 'flows': tile_size must be the "
-                         f"network's input size {size}, got "
-                         f"{cfg.tile_size}")
-    bad = [k for k, v in (("tta", cfg.tta), ("quantize", cfg.quantize),
-                          ("scale_factor", cfg.scale_factor != 1))
-           if v]
-    if bad:
-        raise ValueError(f"label_type 'flows' does not run {bad}")
+    _refuse_tiled("flows", size, cfg)
+
+
+def _check_ais(model: torch.nn.Module, cfg: InferConfig) -> None:
+    """Refuse settings the ais path does not run: its tiles are the
+    network's input size, and it neither flips with TTA, scales nor runs
+    int8."""
+    mcfg = getattr(model, "cfg", None)
+    if not hasattr(mcfg, "decoder_features"):
+        raise ValueError("label_type 'ais' needs a muSAM model "
+                         "(models/unetr.py)")
+    _refuse_tiled("ais", mcfg.img_size, cfg)
 
 
 def _distance_fields(model, x):
@@ -104,6 +146,13 @@ def _flows_fields(model, x):
     return [model(xin).permute(0, 2, 3, 1).contiguous()]
 
 
+def _ais_fields(model, x):
+    mean = x.new_tensor(SAM_PIXEL_MEAN).view(1, 3, 1, 1)
+    std = x.new_tensor(SAM_PIXEL_STD).view(1, 3, 1, 1)
+    xin = torch.nan_to_num((x.permute(0, 3, 1, 2) - mean) / std, nan=0.0)
+    return [model(xin).permute(0, 2, 3, 1).contiguous()]
+
+
 def _distance_masks(fields, th_cell, th_seed, max_seeds, cfg):
     return distance_postprocessing(fields[0], fields[1], th_seed, th_cell,
                                    max_seeds=max_seeds)
@@ -117,6 +166,10 @@ def _flows_masks(fields, th_cell, th_seed, max_seeds, cfg):
     return torch.stack([
         flows_postprocessing(f[..., :2].permute(2, 0, 1), f[..., 2], cfg)
         for f in fields[0]])
+
+
+def _ais_masks(fields, th_cell, th_seed, max_seeds, cfg):
+    return ais_postprocessing(fields[0], cfg)
 
 
 @dataclass(frozen=True)
@@ -154,6 +207,10 @@ LABEL_TYPES = {
     "flows": LabelType(
         normalize=normalize99, pad_value=0.0, fields=((3,),),
         apply=_flows_fields, postprocess=_flows_masks, check=_check_flows,
+        always_tiled=True),
+    "ais": LabelType(
+        normalize=normalize_to_255, pad_value=float("nan"), fields=((3,),),
+        apply=_ais_fields, postprocess=_ais_masks, check=_check_ais,
         always_tiled=True),
 }
 

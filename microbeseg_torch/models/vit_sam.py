@@ -48,18 +48,32 @@ LayerNorm's output are one launch of ``ops/kernels/add_layernorm.py``
 2 * depth launches a forward; it raises on what it does not take, as
 ``rel_attention`` does.  On the CPU each block's ``forward`` runs as
 written.  The parameters keep their names either way.
+
+The same ``Encoder`` is SAM's image encoder with windowed attention
+(``window_size`` > 0, as muSAM runs it, ``models/unetr.py``): a block not
+in ``global_attn_indexes`` pads its normed (B, G, G, D) map with zeros at
+the bottom and right to a multiple of the window, cuts it into windows of
+window_size^2 tokens, runs qkv, the attention and proj on every token of
+every window (the padded tokens, whose q, k and v are qkv's bias, are keys
+and values like any other: SAM masks nothing), puts the windows back and
+crops to G x G before the residual add (SAM's ``window_partition`` and
+``window_unpartition``).  Each block's relative tables have 2 g - 1 rows of
+its own grid g: the window in a windowed block, G in a global one.  On the
+card a windowed block's attention is one launch of the same kernel over
+all its windows; the span ``mseg.vit.window`` marks the pad and cut, and
+the reassembly and crop.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from microbeseg_torch.config import CellposeSAMConfig
+from microbeseg_torch.config import CellposeSAMConfig, MicroSAMConfig
 from microbeseg_torch.ops.kernels.add_layernorm import add_layernorm
 from microbeseg_torch.ops.kernels.rel_attention import rel_attention
 from microbeseg_torch.utils.profiling import span
@@ -101,6 +115,28 @@ def rel_pos_bias(q: torch.Tensor, rel_pos_h: torch.Tensor,
     return both @ _spread(g, both.dtype, q.device)
 
 
+def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
+    """(B, G, G, D) -> (B * n^2, ws, ws, D) windows, n = ceil(G / ws),
+    the map padded with zeros at the bottom and right first."""
+    B, g, _, d = x.shape
+    n = -(-g // ws)
+    pad = n * ws - g
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad, 0, pad))
+    x = x.view(B, n, ws, n, ws, d).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B * n * n, ws, ws, d)
+
+
+def window_unpartition(x: torch.Tensor, g: int) -> torch.Tensor:
+    """``window_partition``'s windows (B * n^2, ws, ws, D) -> the (B, g, g,
+    D) map, the padding cropped off, contiguous."""
+    nb, ws, _, d = x.shape
+    n = -(-g // ws)
+    x = x.view(nb // (n * n), n, n, ws, ws, d).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(-1, n * ws, n * ws, d)
+    return x[:, :g, :g].contiguous() if n * ws != g else x
+
+
 class PatchEmbed(nn.Module):
     def __init__(self, cfg: CellposeSAMConfig):
         super().__init__()
@@ -112,12 +148,15 @@ class PatchEmbed(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: CellposeSAMConfig):
+    """Attention over a g x g grid of tokens, its relative tables of 2g - 1
+    rows: ``grid``, or the configuration's token grid where None."""
+
+    def __init__(self, cfg: CellposeSAMConfig, grid: Optional[int] = None):
         super().__init__()
         d, self.heads = cfg.embed_dim, cfg.num_heads
         self.qkv = nn.Linear(d, 3 * d)
         self.proj = nn.Linear(d, d)
-        rows, hd = 2 * cfg.grid - 1, d // cfg.num_heads
+        rows, hd = 2 * (grid or cfg.grid) - 1, d // cfg.num_heads
         self.rel_pos_h = nn.Parameter(torch.zeros(rows, hd))
         self.rel_pos_w = nn.Parameter(torch.zeros(rows, hd))
 
@@ -149,15 +188,30 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: CellposeSAMConfig):
+    """``window`` 0: global attention over the token grid; otherwise
+    attention within windows of ``window`` tokens a side."""
+
+    def __init__(self, cfg: CellposeSAMConfig, window: int = 0):
         super().__init__()
+        self.window = window
         self.norm1 = nn.LayerNorm(cfg.embed_dim, eps=LN_EPS)
-        self.attn = Attention(cfg)
+        self.attn = Attention(cfg, window or None)
         self.norm2 = nn.LayerNorm(cfg.embed_dim, eps=LN_EPS)
         self.mlp = MLP(cfg)
 
+    def attend(self, h: torch.Tensor) -> torch.Tensor:
+        """The attention branch on the normed map h (B, G, G, D): global,
+        or over h's windows and put back."""
+        if not self.window:
+            return self.attn(h)
+        with span("mseg.vit.window"):
+            w = window_partition(h, self.window)
+        a = self.attn(w)
+        with span("mseg.vit.window"):
+            return window_unpartition(a, h.shape[1])
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
+        x = x + self.attend(self.norm1(x))
         return x + self.mlp(self.norm2(x))
 
 
@@ -171,7 +225,7 @@ def run_blocks(blocks: nn.ModuleList, x: torch.Tensor,
     neck reads the float32 stream."""
     y = step(x, None, blocks[0].norm1)
     for i, blk in enumerate(blocks):
-        y = step(x, blk.attn(y), blk.norm2)
+        y = step(x, blk.attend(y), blk.norm2)
         h = blk.mlp(y)
         if i + 1 == len(blocks):
             return x + h
@@ -193,16 +247,30 @@ class LayerNorm2d(nn.Module):
 
 
 class Encoder(nn.Module):
+    """(B, ch_in, img_size, img_size) -> the neck's (B, neck_dim, G, G).
+    ``cfg``: a ``CellposeSAMConfig`` or a ``MicroSAMConfig``."""
+
     def __init__(self, cfg: CellposeSAMConfig):
         super().__init__()
         self.patch_embed = PatchEmbed(cfg)
         self.pos_embed = nn.Parameter(
             torch.zeros(1, cfg.grid, cfg.grid, cfg.embed_dim))
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(
+            Block(cfg, 0 if i in cfg.global_attn_indexes else cfg.window_size)
+            for i in range(cfg.depth))
         n = cfg.neck_dim
         self.neck = nn.Sequential(
             nn.Conv2d(cfg.embed_dim, n, 1, bias=False), LayerNorm2d(n),
             nn.Conv2d(n, n, 3, padding=1, bias=False), LayerNorm2d(n))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.patch_embed(x) + self.pos_embed
+        if x.is_cuda:
+            x = run_blocks(self.blocks, x.contiguous(), add_layernorm)
+        else:
+            for blk in self.blocks:
+                x = blk(x)
+        return self.neck(x.permute(0, 3, 1, 2))
 
 
 class CellposeSAM(nn.Module):
@@ -215,17 +283,17 @@ class CellposeSAM(nn.Module):
         self.out = nn.Conv2d(cfg.neck_dim, cfg.nout * cfg.patch_size ** 2, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        enc = self.encoder
-        x = enc.patch_embed(x) + enc.pos_embed
-        if x.is_cuda:
-            x = run_blocks(enc.blocks, x.contiguous(), add_layernorm)
-        else:
-            for blk in enc.blocks:
-                x = blk(x)
-        x = enc.neck(x.permute(0, 3, 1, 2))
-        return F.pixel_shuffle(self.out(x), self.cfg.patch_size)
+        return F.pixel_shuffle(self.out(self.encoder(x)), self.cfg.patch_size)
 
 
 def build_cellpose_sam(cfg: CellposeSAMConfig = CellposeSAMConfig()
                        ) -> CellposeSAM:
     return CellposeSAM(cfg)
+
+
+def build_sam_encoder(cfg: MicroSAMConfig = MicroSAMConfig()) -> Encoder:
+    """SAM's ViT image encoder (``build_sam.py::build_sam_vit_l`` at the
+    defaults: 1024^2 inputs in 16 px patches, a 64 x 64 grid, 24 blocks of
+    16 heads, windows of 14 and global attention in blocks 5, 11, 17 and
+    23, the neck to 256)."""
+    return Encoder(cfg)

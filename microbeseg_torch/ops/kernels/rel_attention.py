@@ -13,7 +13,9 @@ returns the heads' outputs merged, (B, g * g, D), the layout the block's
 
 It takes CUDA tensors only and runs the kernel (``csrc/rel_attention.cu``),
 one launch counted as ``rel_attention`` and its B * heads maps as the
-profiling tally ``attention_maps``.  ``refusal`` names what the kernel does
+profiling tallies ``attention_maps`` and ``attention_maps.g{g}`` (by grid:
+a windowed block's launch counts under its window, a global one under the
+token grid).  ``refusal`` names what the kernel does
 not take, and ``rel_attention`` raises on it.  ``rel_attention_plain`` is
 the tests' reference; the block's CPU route is its own (bias, then SDPA).
 """
@@ -104,4 +106,5 @@ def rel_attention(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
     _build.check(err, "rel_attention")
     _build.count_launch("rel_attention")
     count("attention_maps", B * heads)
+    count(f"attention_maps.g{g}", B * heads)
     return out

@@ -5,9 +5,12 @@ Port of ``microbeseg_tpu/ops/postprocessing.py``: the distance method
 raster order, small-seed prune, then the marker flood -> uint16 masks), the
 boundary method (argmax mask, seeds from cell and boundary probability, the
 same prune and flood) and the distance method over a grid of threshold
-pairs.  The JAX functions work on one frame and the engine vmaps them; here
-the batch axis is explicit, and the quantisation and the prune statistics
-stay per image.
+pairs.  Beside them muSAM's automatic instance segmentation
+(``ais_postprocessing``, which the JAX package does not have): torch_em's
+seeded watershed from centre and boundary distances on the same
+components and flood.  The JAX functions work on one frame and the engine
+vmaps them; here the batch axis is explicit, and the quantisation and the
+prune statistics stay per image.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from microbeseg_torch.ops import cc
 from microbeseg_torch.ops.filters import gaussian_filter
 from microbeseg_torch.ops.kernels import flood
 from microbeseg_torch.ops.watershed import watershed, watershed_fast
+from microbeseg_torch.utils.profiling import span
 
 _MAX_PACKED = (1 << 24) - 1
 
@@ -42,10 +46,7 @@ def _prune_small_seeds(seeds_bin: torch.Tensor, min_area_floor: float,
     B = rank.shape[0]
     raw_cap = min(max(4 * max_seeds, 1024), _MAX_PACKED)
     rank = torch.where(rank > raw_cap, 0, rank).view(B, -1).to(torch.int64)
-    offsets = torch.arange(B, device=rank.device).view(B, 1) * (raw_cap + 1)
-    areas = torch.bincount((rank + offsets).view(-1),
-                           minlength=B * (raw_cap + 1))
-    areas = areas.view(B, raw_cap + 1).to(torch.float32)
+    areas = _areas(rank, raw_cap).to(torch.float32)
     areas[:, 0] = 0.0
     n = (areas > 0).sum(dim=1)
     mean_area = areas.sum(dim=1) / torch.clamp(n, min=1).to(torch.float32)
@@ -54,9 +55,26 @@ def _prune_small_seeds(seeds_bin: torch.Tensor, min_area_floor: float,
                            torch.zeros_like(mean_area))
     min_area = torch.clamp(min_area, min=float(min_area_floor))
     kept = areas > min_area[:, None]
+    return _renumber(rank, kept, max_seeds).view(seeds_bin.shape)
+
+
+def _areas(ids: torch.Tensor, cap: int) -> torch.Tensor:
+    """(B, N) int64 ids 0..cap -> (B, cap + 1) pixel counts per image: one
+    batched ``bincount``."""
+    B = ids.shape[0]
+    offsets = torch.arange(B, device=ids.device).view(B, 1) * (cap + 1)
+    return torch.bincount((ids + offsets).view(-1),
+                          minlength=B * (cap + 1)).view(B, cap + 1)
+
+
+def _renumber(ids: torch.Tensor, kept: torch.Tensor,
+              limit: int = _MAX_PACKED) -> torch.Tensor:
+    """(B, N) int64 ids and (B, cap + 1) bool ``kept`` per id -> (B, N)
+    int32: the kept ids numbered 1..n per image in their order, ids not
+    kept or numbered past ``limit`` 0 (a cumsum table and a ``gather``)."""
     table = torch.cumsum(kept.to(torch.int32), dim=1, dtype=torch.int32)
-    table = torch.where(kept & (table <= max_seeds), table, 0)
-    return torch.gather(table, 1, rank).view(seeds_bin.shape).to(torch.int32)
+    table = torch.where(kept & (table <= limit), table, 0)
+    return torch.gather(table, 1, ids)
 
 
 def distance_postprocessing(border_prediction: torch.Tensor,
@@ -193,3 +211,59 @@ def distance_postprocessing_grid(border_prediction: torch.Tensor,
         distance_postprocessing(border, cell, th_seed[i], th_cell[i],
                                 max_seeds=max_seeds, n_levels=n_levels)
         for i in range(pairs.shape[0])])
+
+
+# the most seeds muSAM's post-processing floods: every one fits the uint16
+# masks
+AIS_MAX_SEEDS = 65535
+AIS_LEVELS = 128
+
+
+def ais_postprocessing(fields: torch.Tensor, cfg) -> torch.Tensor:
+    """muSAM's automatic instance segmentation of (B, H, W, 3) or (H, W,
+    3) fields (foreground, centre distance, boundary distance) -> uint16
+    masks: torch_em's ``watershed_from_center_and_boundary_distances`` as
+    micro-sam's ``InstanceSegmentationWithDecoder.generate`` calls it.
+
+    ``cfg`` (an ``InferConfig``) gives the thresholds, the smoothings and
+    ``min_size``.  The foreground is smoothed with a Gaussian of std
+    ``foreground_smoothing`` (none at 0), both distances with std
+    ``distance_smoothing`` (``gaussian_filter``, radius int(4 sigma + 0.5));
+    the mask is ``foreground > foreground_threshold``; the seeds are the
+    8-connected components of (centre < its threshold) & (boundary < its
+    threshold) & mask, numbered in raster order of their last pixel (at
+    most ``AIS_MAX_SEEDS``); they flood the boundary distance inside the
+    mask (lower first, 4-neighbour) with the quantised marker flood the
+    distance method dispatches (``AIS_LEVELS`` levels; the packed-key
+    kernels on the card, above 768 px K2); segments under ``min_size``
+    pixels go and the rest are numbered 1..n in order.  Spans
+    ``mseg.segment.ais.smooth``, ``.seeds`` and ``.flood``."""
+    squeeze = fields.ndim == 3
+    if squeeze:
+        fields = fields[None]
+    f = fields.to(torch.float32)
+    with span("mseg.segment.ais.smooth"):
+        fg = f[..., 0].contiguous()
+        if cfg.foreground_smoothing > 0:
+            fg = gaussian_filter(fg, sigma=cfg.foreground_smoothing)
+        dist = gaussian_filter(f[..., 1:].permute(0, 3, 1, 2).contiguous(),
+                               sigma=cfg.distance_smoothing)
+        center, boundary = dist[:, 0], dist[:, 1]
+    with span("mseg.segment.ais.seeds"):
+        mask = fg > cfg.foreground_threshold
+        seeds_bin = ((center < cfg.center_distance_threshold)
+                     & (boundary < cfg.boundary_distance_threshold) & mask)
+        seeds = cc.ranked_components(seeds_bin)
+        seeds = torch.where(seeds > AIS_MAX_SEEDS, 0, seeds)
+    with span("mseg.segment.ais.flood"):
+        method = _resolve_method("auto", f.device, AIS_MAX_SEEDS)
+        labels = _flood(method, boundary, seeds, mask, AIS_LEVELS,
+                        AIS_MAX_SEEDS, flood.flood_or_fallback)
+        if cfg.min_size > 0:
+            B = labels.shape[0]
+            ids = labels.to(torch.int64).view(B, -1)
+            kept = _areas(ids, AIS_MAX_SEEDS) >= cfg.min_size
+            kept[:, 0] = False
+            labels = _renumber(ids, kept).view(labels.shape).to(torch.uint16)
+    return labels[0] if squeeze else labels
+

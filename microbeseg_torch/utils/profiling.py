@@ -16,7 +16,9 @@ src/training/train.py:432,448,552-557).  Here the port records, while a
   kernel's own step counts when ``summary`` is read;
 - ``count``: a plain tally known on the host, summed per name (the flows
   post-processing's ``flow_points``, the points its Euler steps follow,
-  and ``qc_iterations``, the diffusion steps of its flow check).
+  and ``qc_iterations``, the diffusion steps of its flow check;
+  ``attention_maps`` and ``attention_maps.g{g}``, the maps of the ViT's
+  attention kernel by grid).
 
 With no profiler recording, ``span`` returns one shared no-op context after
 a single flag check and ``count_steps`` and ``count`` return at once:

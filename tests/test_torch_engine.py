@@ -445,7 +445,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "training.trainer", "cli.train", "client.contours",
                 "client.native", "client.store", "client.workers",
                 "cli.serve", "cli.infer_store", "models.torch_import",
-                "utils.profiling", "parallel.mesh", "gui.app"):
+                "utils.profiling", "parallel.mesh", "gui.app",
+                "models.vit_sam", "models.unetr"):
         assert (REPO / "microbeseg_torch" / (mod.replace(".", "/") + ".py")
                 ).is_file()
     banned = {"jax", "flax", "msgpack", "triton", "pandas", "microbeseg_tpu"}
@@ -463,7 +464,7 @@ def test_port_imports_without_jax_or_the_jax_package():
 
 @pytest.mark.parametrize("case", ["distance-bucket", "distance-tiled",
                                   "boundary-bucket", "boundary-tiled",
-                                  "flows"])
+                                  "flows", "ais"])
 def test_out_of_memory_gives_zero_fields_and_masks(request, monkeypatch,
                                                     case):
     """A forward that runs out of memory: each chunk's fields are all zero
@@ -476,6 +477,12 @@ def test_out_of_memory_gives_zero_fields_and_masks(request, monkeypatch,
                                  cfg=InferConfig(**INFER, batch_size=2),
                                  device="cpu")
         frames = seeded_frames(2, 100, 4)
+    elif case == "ais":
+        from tests.test_torch_usam import INFER, seeded_frames, tiny_model
+        engine = InferenceEngine(tiny_model()[0], "ais",
+                                 cfg=InferConfig(**INFER, batch_size=2),
+                                 device="cpu")
+        frames = seeded_frames(2, 130, 4)
     else:
         kind, path = case.split("-")
         ckpt = request.getfixturevalue(

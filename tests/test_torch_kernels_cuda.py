@@ -784,7 +784,9 @@ def _check_rel_attention(got, want):
     (2, 3, 12, 64, 0.5),
     (2, 4, 12, 16, 0.5),
     (1, 2, 1, 64, 0.5),      # one token
-    (1, 2, 64, 64, 0.2)])    # the largest grid
+    (1, 2, 64, 64, 0.2),     # the largest grid
+    (50, 16, 14, 64, 0.5),   # muSAM's windowed blocks: 2 tiles x 25 windows
+    (2, 16, 64, 64, 0.5)])   # muSAM's global blocks: 2 tiles of 4,096
 def test_rel_attention_matches_plain(dev, B, heads, g, hd, rel_std):
     from microbeseg_torch.kernels import _build
     from microbeseg_torch.ops.kernels.rel_attention import (
@@ -1085,4 +1087,56 @@ def test_cellpose_sam_forward_takes_add_layernorm(dev):
             model.out(enc.neck(t.permute(0, 3, 1, 2))),
             model.cfg.patch_size)
     assert _build.LAUNCHES["add_layernorm"] == before["add_layernorm"] + 48
+    assert _rms(got.float() - want.float()) <= 0.01 * _rms(want)
+
+
+@pytest.mark.cuda
+def test_micro_sam_forward_takes_both_kernels_at_both_grids(dev, monkeypatch):
+    """muSAM's published-width forward of two 1024^2 tiles under
+    inference_mode and bf16 autocast: rel_attention 24 times (20 at the
+    window's grid of 14 over 25 windows a tile, 4 at the 64 x 64 grid),
+    add_layernorm 48 times, never the CPU route; its fields agree with the
+    same forward whose attention is the float32 plain path within the
+    attention test's 1% of their RMS."""
+    import torch.nn.functional as F
+
+    from microbeseg_torch.config import MicroSAMConfig
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.models import unetr, vit_sam
+    from microbeseg_torch.ops.kernels import rel_attention as ra
+
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = unetr.build_micro_sam_ais(MicroSAMConfig()).eval()
+        for blk in model.image_encoder.blocks:
+            torch.nn.init.normal_(blk.attn.rel_pos_h, std=0.5)
+            torch.nn.init.normal_(blk.attn.rel_pos_w, std=0.5)
+        x = torch.randn(2, 3, 1024, 1024)
+    grids = []
+    kernel = vit_sam.rel_attention
+
+    def counted(qkv, th, tw, heads, g):
+        grids.append((g, qkv.shape[0]))
+        return kernel(qkv, th, tw, heads, g)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the card's forward called the CPU route")
+
+    with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16):
+        with monkeypatch.context() as mp:
+            mp.setattr(vit_sam, "rel_pos_bias", refused)
+            mp.setattr(F, "scaled_dot_product_attention", refused)
+            mp.setattr(vit_sam, "rel_attention", counted)
+            before = dict(_build.LAUNCHES)
+            got = model(x)
+            assert _build.LAUNCHES["rel_attention"] == \
+                before["rel_attention"] + 24
+            assert _build.LAUNCHES["add_layernorm"] == \
+                before["add_layernorm"] + 48
+        assert sorted(grids) == [(14, 50)] * 20 + [(64, 2)] * 4
+        monkeypatch.setattr(vit_sam, "rel_attention",
+                            lambda qkv, *a: ra.rel_attention_plain(
+                                qkv.float(), *a).to(qkv.dtype))
+        want = model(x)
+    assert got.shape == (2, 3, 1024, 1024)
     assert _rms(got.float() - want.float()) <= 0.01 * _rms(want)
