@@ -4270,6 +4270,21 @@ def check_follow(dev, report):
 TENSOR_FLOPS_PER_S = 989e12   # H100 SXM, bf16 tensor cores, dense
 
 
+def rel_attention_instance(report, hd, g):
+    """The shared bytes a block of A takes at head width hd and grid g, and
+    the ``-Xptxas -v`` lines of the instance that serves it (registers,
+    stack, spills): ``rel_attention_kernel<hd, g>`` on the ``wgmma`` path,
+    ``<hd, 0>`` on ``mma.sync``."""
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.ops.kernels import rel_attention as ra
+
+    lib = _build.load("rel_attention")
+    lib.rel_attention_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    inst = g if ra.route(hd, g) == "wgmma" else 0
+    return lib.rel_attention_shared_bytes(hd, g), report.get(
+        "ptxas_rel_attention", {}).get(f"<{hd}, {inst}>", [])
+
+
 def check_rel_attention(dev, report):
     """A: ``rel_attention_kernel`` at the cell's shape against the float32
     plain path and the path it replaced (``library_ms``: the bf16 bias of
@@ -4278,7 +4293,6 @@ def check_rel_attention(dev, report):
     (operations) and q, k, v and the output once (bytes)."""
     import torch.nn.functional as F
 
-    from microbeseg_torch.kernels import _build
     from microbeseg_torch.models import vit_sam
     from microbeseg_torch.ops.kernels import rel_attention as ra
 
@@ -4317,9 +4331,7 @@ def check_rel_attention(dev, report):
         bias = vit_sam.rel_pos_bias(q, th, tw, g)
         sdpa_alone_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=bias), reps=20)
-    lib = _build.load("rel_attention")
-    lib.rel_attention_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    shared = lib.rel_attention_shared_bytes(hd, g)
+    shared, ptxas = rel_attention_instance(report, hd, g)
     maps = B * heads
     b = bound(maps * 8 * n * hd, maps * 4 * n * n * hd, TENSOR_FLOPS_PER_S)
     ms, library_ms = min(times["ms"]), min(times["library_ms"])
@@ -4332,8 +4344,8 @@ def check_rel_attention(dev, report):
              library_rms_err=float(old_err.pow(2).mean().sqrt()),
              ms=ms, turns=times, plain_ms=plain_ms, library_ms=library_ms,
              sdpa_alone_ms=sdpa_alone_ms,
-             roofline_pct=100.0 * b["bound_ms"] / ms, shared_bytes=shared,
-             ptxas=report.get("ptxas_rel_attention", []), **b)
+             roofline_pct=100.0 * b["bound_ms"] / ms, route=ra.route(hd, g),
+             shared_bytes=shared, ptxas=ptxas, **b)
     report.setdefault("kernels", {})["rel_attention"] = r
     print(f"A rel_attention_kernel at {B} x {heads} maps of {n} tokens, "
           f"head {hd}: {ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
@@ -4342,7 +4354,8 @@ def check_rel_attention(dev, report):
           f"{sdpa_alone_ms:.4f}); plain {plain_ms:.3f} ms; RMS error "
           f"{r['rms_err']:.3g} against {r['library_rms_err']:.3g} of the "
           f"replaced path (output RMS {rms:.3g}); max {r['max_abs_err']:.3g}; "
-          f"{shared} bytes of shared memory a block", flush=True)
+          f"{r['route']}, {shared} bytes of shared memory a block, ptxas "
+          f"{ptxas}", flush=True)
 
 
 def check_rel_attention_grids(dev, report):
@@ -4395,16 +4408,20 @@ def check_rel_attention_grids(dev, report):
         b = bound(maps * 8 * n * hd, maps * 4 * n * n * hd,
                   TENSOR_FLOPS_PER_S)
         ms = min(times["ms"])
+        shared, ptxas = rel_attention_instance(report, hd, g)
         out[f"g{g}"] = dict(shape=[B, heads, n, hd], rms=rms,
                             rms_err=rms_err, max_abs_err=max_err, ms=ms,
                             turns=times, library_ms=min(times["library_ms"]),
-                            roofline_pct=100.0 * b["bound_ms"] / ms, **b)
+                            roofline_pct=100.0 * b["bound_ms"] / ms,
+                            route=ra.route(hd, g), shared_bytes=shared,
+                            ptxas=ptxas, **b)
         print(f"A rel_attention_kernel at {B} x {heads} maps of {n} tokens "
               f"(g {g}), head {hd}: {ms:.4f} ms, bound {b['bound_ms']:.4f} "
               f"ms ({b['bound_by']}), {out[f'g{g}']['roofline_pct']:.1f}% "
               f"of it; bias + SDPA {out[f'g{g}']['library_ms']:.4f} ms; "
               f"RMS error {rms_err:.3g} of RMS {rms:.3g}, max "
-              f"{max_err:.3g}", flush=True)
+              f"{max_err:.3g}; {out[f'g{g}']['route']}, {shared} bytes of "
+              f"shared memory a block, ptxas {ptxas}", flush=True)
         torch.cuda.empty_cache()
     report["rel_attention_grids"] = out
 
@@ -4647,7 +4664,8 @@ def ais_path(dev, report):
     if not np.array_equal(again, masks):
         raise AssertionError("ais path: a second call gave other masks")
     want = {"attention_maps.g14": 20 * 25 * 16 * tiles,
-            "attention_maps.g64": 4 * 16 * tiles}
+            "attention_maps.g64": 4 * 16 * tiles,
+            "attention_maps.wgmma": 4 * 16 * tiles}
     got = {k: counters.get(k, 0) for k in want}
     if got != want:
         raise AssertionError(f"ais path: attention maps by grid {got}, "
@@ -4709,8 +4727,11 @@ def main() -> int:
                                           "follow_flows_kernel")
     print(f"ptxas, follow_flows_kernel: {report['ptxas_follow']}",
           flush=True)
-    report["ptxas_rel_attention"] = ptxas_report(
-        logs.get("rel_attention", ""), "rel_attention_kernel")
+    # by instance: <hd, g> on the wgmma path, <hd, 0> on mma.sync
+    report["ptxas_rel_attention"] = {
+        f"<{hd}, {g}>": ptxas_report(logs.get("rel_attention", ""),
+                                     f"rel_attention_kernelILi{hd}ELi{g}E")
+        for hd, g in ((64, 32), (64, 64), (64, 0), (16, 0))}
     print(f"ptxas, rel_attention_kernel: {report['ptxas_rel_attention']}",
           flush=True)
     # its two instances, 8 quads a lane (D up to 1,024)

@@ -33,18 +33,28 @@
 // - Each logit in registers becomes S * log2(e) / sqrt(HD) + rel_h + rel_w;
 //   online softmax in float32 with exp2; P rounded to bf16 and P v into
 //   float32 sums, rescaled only where a row's maximum moved.
-// - g = 32 at head 64 (the published 256^2 tiles of 8 px patches): two
-//   warpgroups of 64 rows on `wgmma`, q, k and v in shared memory with the
-//   128-byte swizzle, k and v loaded one tile ahead by `cp.async`.  A step
-//   issues S = q k_t^T and O += P_{t-1} v_{t-1} together and runs the
-//   softmax of tile t while the second product runs.  A key tile is two
-//   image rows, so each thread's columns take the same kw in every tile and
-//   their rel_w stays in registers; the tile's two rel_h values a row join
-//   the row maximum and the exponent's offset, not each logit.
+// - g = 32 and g = 64 at head 64 (Cellpose-SAM's 256^2 tiles of 8 px
+//   patches; SAM's global blocks on 1024^2 tiles of 16 px): two warpgroups
+//   of 64 rows on `wgmma`, q, k and v in shared memory with the 128-byte
+//   swizzle, k and v loaded one tile ahead by `cp.async`.  A step issues
+//   S = q k_t^T and O += P_{t-1} v_{t-1} together and runs the softmax of
+//   tile t while the second product runs.  A key tile is two image rows of
+//   32 columns: at g = 32 two whole rows, at g = 64 two half rows, the
+//   left halves of the map first, then the right.  So each thread's
+//   columns take the same kw in every tile of a half and their rel_w (16
+//   floats) stays in registers, read again once at g = 64 for the right
+//   half; the tile's two rel_h values a row join the row maximum and the
+//   exponent's offset, not each logit.  (Tiles of one whole row at g = 64
+//   would hold 32 rel_w a thread, past the 128 registers two blocks an SM
+//   leave.)  At g = 64 the tables (2 x 127 rows) and rel_h and rel_w
+//   (2 x 128 x 64 float32) would leave room for one block an SM: there the
+//   tables share the k and v buffers, which are loaded once the relative
+//   products are written, and rel_h and rel_w take rows of g with their
+//   columns swizzled, 113 KB a block and two blocks an SM, as at g = 32.
 // - Any other grid (1 to 64) and head 16: four warps of 32 rows on
 //   `mma.sync` (each k or v fragment read from shared memory feeds two
 //   products), both terms read from shared memory per logit, the ragged
-//   last tiles masked.
+//   last tiles masked.  `rel_attention_route` is the rule.
 //
 // What bounds it on the H100: the two products, 4 N^2 HD operations a map,
 // over the tensor cores' 989 TFLOP/s, against q, k, v and the output, 8 N HD
@@ -128,7 +138,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t *>(&v);
 }
 
-// --- wgmma (the g = 32, head 64 path) ----------------------------------------
+// --- wgmma (the g = 32 and g = 64, head 64 path) ------------------------------
 
 // Keeps the compiler from moving a use of a register across the
 // asynchronous products that read or write it.
@@ -221,20 +231,24 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
 // path q, k and v lie in rows of 128 bytes with the 128-byte swizzle that
 // `wgmma` reads (16-byte piece c of row r at piece c ^ (r % 8)); on the
 // mma.sync path in rows of HD + 8 bf16, so that `ldmatrix` reads eight rows
-// without bank conflicts.  The tables always take rows of HD + 8.
+// without bank conflicts.  The tables take rows of HD + 8, except on the
+// wgmma path at g = 64, where they take the swizzled rows of 128 bytes in
+// the k and v buffers and rel_h and rel_w rows of g (`rel_at`), so that a
+// block fits twice in an SM.
 struct Layout {
   int ld, lt, tp, rs;  // bytes a q/k/v row, a table row; table rows; rel row
   int q, k, v, t, rel, bytes;
   __host__ __device__ Layout(int hd, int g, bool swizzled) {
+    const bool shared_tables = swizzled && g == 64;
     ld = swizzled ? 128 : (hd + 8) * 2;
-    lt = (hd + 8) * 2;
+    lt = shared_tables ? 128 : (hd + 8) * 2;
     tp = (2 * g - 1 + 15) / 16 * 16;
-    rs = g + 1;
+    rs = shared_tables ? g : g + 1;
     q = 0;
     k = q + BM * ld;
     v = k + 2 * BN * ld;
-    t = v + 2 * BN * ld;
-    rel = t + 2 * tp * lt;
+    t = shared_tables ? k : v + 2 * BN * ld;
+    rel = shared_tables ? v + 2 * BN * ld : t + 2 * tp * lt;
     bytes = rel + 2 * BM * rs * 4;
   }
 };
@@ -243,6 +257,21 @@ struct Layout {
 template <bool SW>
 __device__ __forceinline__ uint32_t piece(int r, int c, int ld) {
   return SW ? r * 128 + ((c ^ (r & 7)) << 4) : r * ld + (c << 4);
+}
+
+// byte offset of byte b of row r, the same places as `piece`
+template <bool SW>
+__device__ __forceinline__ uint32_t row_byte(int r, int b, int ld) {
+  return SW ? r * 128 + (b ^ ((r & 7) << 4)) : r * ld + b;
+}
+
+// Where the entry of block row r and key row or column c of rel_h or
+// rel_w lies, in floats from its base.  On the wgmma path at g = 64 (G)
+// rows take g floats and the columns are swizzled, so that the 8 rows a
+// warp reads at once for one key row take 8 banks.
+template <int G>
+__device__ __forceinline__ int rel_at(int r, int c, int rs) {
+  return G == 64 ? r * rs + (c ^ (r & 7)) : r * rs + c;
 }
 
 // rows [r0, r0 + rows) of one head's HD columns at `src` (row stride
@@ -261,9 +290,9 @@ __device__ __forceinline__ void load_rows(uint32_t dst,
   }
 }
 
-// Both tables, rounded to bf16, into shared rows of HD + 8 (zero past row
-// 2g - 1).
-template <int HD, int NT>
+// Both tables, rounded to bf16, into shared rows of L.lt bytes, swizzled at
+// g = 64 on the wgmma path (G); zero past row 2g - 1.
+template <int HD, int NT, int G>
 __device__ __forceinline__ void load_tables(unsigned char *st,
                                             const float *rel_pos_h,
                                             const float *rel_pos_w,
@@ -275,17 +304,18 @@ __device__ __forceinline__ void load_tables(unsigned char *st,
     if (r < P)
       x = *reinterpret_cast<const float2 *>((tab ? rel_pos_w : rel_pos_h) +
                                             r * HD + c);
-    *reinterpret_cast<__nv_bfloat162 *>(st + (tab * L.tp + r) * L.lt +
-                                        c * 2) =
+    *reinterpret_cast<__nv_bfloat162 *>(
+        st + row_byte<G == 64>(tab * L.tp + r, c * 2, L.lt)) =
         __floats2bfloat162_rn(x.x, x.y);
   }
 }
 
 // q . table^T on the tensor cores for the warp's 16 rows (from `wrow`) and
 // every table row, the entries each query uses written shifted to
-// [row][kh] and [row][kw] (Transformer-XL's relative shift), float32 times
-// log2(e).  qf holds the warp's q fragments (mma.sync's A layout).
-template <int KC>
+// [row][kh] and [row][kw] (Transformer-XL's relative shift, placed by
+// `rel_at`), float32 times log2(e).  qf holds the warp's q fragments
+// (mma.sync's A layout); G is the wgmma path's grid, 0 on mma.sync.
+template <int KC, int G>
 __device__ __forceinline__ void relative_products(const uint32_t (&qf)[KC][4],
                                                   uint32_t st, float *srel,
                                                   const Layout &L, int wrow,
@@ -309,8 +339,9 @@ __device__ __forceinline__ void relative_products(const uint32_t (&qf)[KC][4],
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc) {
         uint32_t r[4];
-        ldsm_x4(r, tt + (np * 16 + lane % 8 + (lane / 16) * 8) * L.lt +
-                       kc * 32 + ((lane / 8) % 2) * 16);
+        ldsm_x4(r, tt + row_byte<G == 64>(
+                           np * 16 + lane % 8 + (lane / 16) * 8,
+                           kc * 32 + ((lane / 8) % 2) * 16, L.lt));
         mma16816(d[0], qf[kc], r[0], r[1]);
         mma16816(d[1], qf[kc], r[2], r[3]);
       }
@@ -323,24 +354,30 @@ __device__ __forceinline__ void relative_products(const uint32_t (&qf)[KC][4],
             const int c = np * 16 + nt * 8 + 2 * tq + e;
             const int kk = qpos[hf][tab] + g - 1 - c;
             if (qin[hf] && c < P && kk >= 0 && kk < g)
-              rel[(wrow + 8 * hf + gq) * L.rs + kk] = d[nt][2 * hf + e] * LOG2E;
+              rel[rel_at<G>(wrow + 8 * hf + gq, kk, L.rs)] =
+                  d[nt][2 * hf + e] * LOG2E;
           }
     }
   }
 }
 
-// --- the g = 32, head 64 path: wgmma -----------------------------------------
+// --- g = 32 and g = 64 at head 64: wgmma -------------------------------------
 //
-// A thread's columns 8n + 2 tq + e of a tile take kw = 8 (n % 4) + 2 tq + e
-// in every tile and key row 2t + n / 4.
+// Key tile t holds image rows 2 (t % HALF) and 2 (t % HALF) + 1 at columns
+// 32 (t / HALF) to 32 (t / HALF) + 31, HALF = g / 2 tiles a half of the
+// columns: at g = 32 keys 64 t to 64 t + 63, at g = 64 two runs of 32.  A
+// thread's columns 8n + 2 tq + e of a tile take key row 2 (t % HALF) + n / 4
+// and kw = 32 (t / HALF) + 8 (n % 4) + 2 tq + e: within a half, the same kw
+// in every tile.
 constexpr int WG_THREADS = 256;
 
+template <int G>
 __device__ __forceinline__ void wgmma_path(
     const __nv_bfloat16 *__restrict__ qkv, const float *__restrict__ rel_pos_h,
     const float *__restrict__ rel_pos_w, __nv_bfloat16 *__restrict__ out,
     int heads, unsigned char *smem) {
-  constexpr int HD = 64, g = 32, N = g * g, P = 2 * g - 1;
-  constexpr int NTILES = N / BN;
+  constexpr int HD = 64, g = G, N = g * g, P = 2 * g - 1;
+  constexpr int NTILES = N / BN, HALF = g / 2;
   constexpr float SCALE = LOG2E / 8.f;  // log2(e) / sqrt(HD)
   const Layout L(HD, g, true);
   const uint32_t base = smem_addr(smem);
@@ -358,16 +395,42 @@ __device__ __forceinline__ void wgmma_path(
   const int tq = lane % 4, gq = lane / 4;
   const int wg = warp / 4, wrow = warp * 16;  // warpgroup; the warp's rows
 
-  // --- prologue: q, k_0, the tables; then k_1 and v_0 in flight
+  // tile t's first key row; its keys (of k or v at src) into shared memory
+  auto tile_row = [](int t) { return G == 32 ? 2 * t : 2 * (t % HALF); };
+  auto load_tile = [&](uint32_t dst, const __nv_bfloat16 *src, int t) {
+    if constexpr (G == 32) {
+      load_rows<HD, WG_THREADS, true>(dst, src, stride, t * BN, BN, N, 128);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        load_rows<HD, WG_THREADS, true>(dst + r * 32 * 128, src, stride,
+                                        (tile_row(t) + r) * g +
+                                            32 * (t / HALF),
+                                        32, N, 128);
+    }
+  };
+
+  // --- prologue: q, k_0, the tables; then k_1 and v_0 in flight.  At
+  // g = 64 the tables lie in the k and v buffers, so k and v are loaded
+  // once every warp has read them.
+  auto load_kv = [&]() {
+    load_tile(sk, kp, 0);
+    cp_async_commit();
+    load_tile(sk + BN * 128, kp, 1);
+    load_tile(sv, vp, 0);
+    cp_async_commit();
+  };
   load_rows<HD, WG_THREADS, true>(sq, qp, stride, m0, BM, N, 128);
-  load_rows<HD, WG_THREADS, true>(sk, kp, stride, 0, BN, N, 128);
-  cp_async_commit();
-  load_rows<HD, WG_THREADS, true>(sk + BN * 128, kp, stride, BN, BN, N, 128);
-  load_rows<HD, WG_THREADS, true>(sv, vp, stride, 0, BN, N, 128);
-  cp_async_commit();
-  load_tables<HD, WG_THREADS>(smem + L.t, rel_pos_h, rel_pos_w, L, P);
-  cp_async_wait<1>();
-  fence_async_shared();
+  if constexpr (G == 64) {
+    cp_async_commit();
+    load_tables<HD, WG_THREADS, G>(smem + L.t, rel_pos_h, rel_pos_w, L, P);
+    cp_async_wait<0>();
+  } else {
+    load_kv();
+    load_tables<HD, WG_THREADS, G>(smem + L.t, rel_pos_h, rel_pos_w, L, P);
+    cp_async_wait<1>();
+    fence_async_shared();
+  }
   __syncthreads();
 
   {
@@ -377,18 +440,36 @@ __device__ __forceinline__ void wgmma_path(
       const int r = wrow + lane % 16;
       ldsm_x4(qf[kc], sq + piece<true>(r, kc * 2 + lane / 16, 128));
     }
-    relative_products<HD / 16>(qf, base + L.t, srel, L, wrow, m0, g);
+    relative_products<HD / 16, G>(qf, base + L.t, srel, L, wrow, m0, g);
+  }
+  if constexpr (G == 64) {
+    __syncthreads();
+    load_kv();
   }
   __syncwarp();
-  const float *relh = srel + (wrow + gq) * rs;  // row gq; gq + 8 at + 8 rs
+  // the thread's rows gq and gq + 8: rel_h of key row kh, and rel_w of the
+  // half's columns, which stays in registers
+  auto relh = [&](int hf, int kh) {
+    return srel[rel_at<G>(wrow + 8 * hf + gq, kh, rs)];
+  };
   float rw[2][4][2];
+  auto load_rw = [&](int half) {
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf)
+    for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        rw[hf][n][e] = relh[BM * rs + hf * 8 * rs + n * 8 + 2 * tq + e];
+        for (int e = 0; e < 2; ++e)
+          rw[hf][n][e] =
+              srel[BM * rs + rel_at<G>(wrow + 8 * hf + gq,
+                                       32 * half + n * 8 + 2 * tq + e, rs)];
+  };
+  load_rw(0);
+  if constexpr (G == 64) {
+    cp_async_wait<1>();
+    fence_async_shared();
+    __syncthreads();
+  }
 
   const uint64_t dq = desc128(sq + wg * 64 * 128, 16);
   float s[32], o[32];
@@ -438,8 +519,8 @@ __device__ __forceinline__ void wgmma_path(
     for (int i = 0; i < 32; ++i) pin(s[i]);
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      const float rh0 = relh[hf * 8 * rs + 2 * t];
-      const float rh1 = relh[hf * 8 * rs + 2 * t + 1];
+      const float rh0 = relh(hf, tile_row(t));
+      const float rh1 = relh(hf, tile_row(t) + 1);
       float m0x = -CUDART_INF_F, m1x = -CUDART_INF_F;
 #pragma unroll
       for (int n = 0; n < BN / 8; ++n)
@@ -502,12 +583,11 @@ __device__ __forceinline__ void wgmma_path(
     cp_async_wait<0>();
     fence_async_shared();
     __syncthreads();
-    if (t + 1 < NTILES)
-      load_rows<HD, WG_THREADS, true>(sk + ((t + 1) & 1) * BN * 128, kp,
-                                      stride, (t + 1) * BN, BN, N, 128);
-    load_rows<HD, WG_THREADS, true>(sv + (t & 1) * BN * 128, vp, stride,
-                                    t * BN, BN, N, 128);
+    if (t + 1 < NTILES) load_tile(sk + ((t + 1) & 1) * BN * 128, kp, t + 1);
+    load_tile(sv + (t & 1) * BN * 128, vp, t);
     cp_async_commit();
+    if constexpr (G == 64)
+      if (t == HALF) load_rw(1);
     issue_qk(t);
     issue_pv(t - 1);
     wgmma_wait<1>();
@@ -579,7 +659,7 @@ __device__ __forceinline__ void mma_sync_path(
   load_rows<HD, MS_THREADS, false>(sk, kp, stride, 0, BN, N, ld);
   load_rows<HD, MS_THREADS, false>(sv, vp, stride, 0, BN, N, ld);
   cp_async_commit();
-  load_tables<HD, MS_THREADS>(smem + L.t, rel_pos_h, rel_pos_w, L, P);
+  load_tables<HD, MS_THREADS, 0>(smem + L.t, rel_pos_h, rel_pos_w, L, P);
   for (int e = threadIdx.x; e < 2 * BM * rs; e += MS_THREADS) srel[e] = 0.f;
   cp_async_wait<1>();
   __syncthreads();
@@ -592,7 +672,7 @@ __device__ __forceinline__ void mma_sync_path(
     for (int kc = 0; kc < KC; ++kc)
       ldsm_x4(qf[mt][kc], sq + (wrow + mt * 16 + lane % 16) * ld + kc * 32 +
                               (lane / 16) * 16);
-    relative_products<KC>(qf[mt], base + L.t, srel, L, wrow + mt * 16, m0, g);
+    relative_products<KC, 0>(qf[mt], base + L.t, srel, L, wrow + mt * 16, m0, g);
   }
   __syncwarp();
 
@@ -729,9 +809,16 @@ __device__ __forceinline__ void mma_sync_path(
     }
 }
 
-constexpr int threads_of(int G) { return G == 32 ? WG_THREADS : MS_THREADS; }
+constexpr int threads_of(int G) { return G ? WG_THREADS : MS_THREADS; }
 
-// G: 32 for g == 32 at head 64 (wgmma), 0 for any g in 1..64 (mma.sync)
+// 1 where a launch at head width hd and grid g takes the wgmma path, 0
+// where it takes mma.sync
+__host__ __device__ constexpr int route(int hd, int g) {
+  return hd == 64 && (g == 32 || g == 64);
+}
+
+// G: g (32 or 64) on the wgmma path at head 64, 0 for any g in 1..64
+// (mma.sync)
 template <int HD, int G>
 __global__ void __launch_bounds__(threads_of(G), 2)
     rel_attention_kernel(const __nv_bfloat16 *__restrict__ qkv,
@@ -739,13 +826,13 @@ __global__ void __launch_bounds__(threads_of(G), 2)
                          const float *__restrict__ rel_pos_w,
                          __nv_bfloat16 *__restrict__ out, int heads, int g) {
   static_assert(HD == 16 || HD == 64, "head width 16 or 64");
-  static_assert(G == 0 || (G == 32 && HD == 64), "wgmma path: g 32, head 64");
+  static_assert(G == 0 || route(HD, G), "wgmma path: g 32 or 64, head 64");
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte alignment for the 128-byte swizzle (the launch adds 1 KB)
   unsigned char *smem =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  if constexpr (G == 32)
-    wgmma_path(qkv, rel_pos_h, rel_pos_w, out, heads, smem);
+  if constexpr (G != 0)
+    wgmma_path<G>(qkv, rel_pos_h, rel_pos_w, out, heads, smem);
   else
     mma_sync_path<HD>(qkv, rel_pos_h, rel_pos_w, out, heads, g, smem);
 }
@@ -754,7 +841,7 @@ constexpr int MAX_DEVICES = 64;
 
 // dynamic shared memory of a launch: the layout and 1 KB for its alignment
 int shared_bytes(int hd, int g) {
-  return Layout(hd, g, hd == 64 && g == 32).bytes + 1024;
+  return Layout(hd, g, route(hd, g)).bytes + 1024;
 }
 
 template <int HD, int G>
@@ -800,11 +887,13 @@ extern "C" int rel_attention_launch(const void *qkv, const void *rel_pos_h,
   cudaStream_t s = (cudaStream_t)stream;
   if (B <= 0 || heads <= 0 || g < 1 || g > 64)
     return (int)cudaErrorInvalidValue;
-  if (hd == 64)
+  if (route(hd, g))
     return g == 32 ? launch<64, 32>(qkv, rel_pos_h, rel_pos_w, out, B, heads,
                                     g, s)
-                   : launch<64, 0>(qkv, rel_pos_h, rel_pos_w, out, B, heads, g,
-                                   s);
+                   : launch<64, 64>(qkv, rel_pos_h, rel_pos_w, out, B, heads,
+                                    g, s);
+  if (hd == 64)
+    return launch<64, 0>(qkv, rel_pos_h, rel_pos_w, out, B, heads, g, s);
   if (hd == 16)
     return launch<16, 0>(qkv, rel_pos_h, rel_pos_w, out, B, heads, g, s);
   return (int)cudaErrorInvalidValue;
@@ -814,3 +903,7 @@ extern "C" int rel_attention_launch(const void *qkv, const void *rel_pos_h,
 extern "C" int rel_attention_shared_bytes(int hd, int g) {
   return shared_bytes(hd, g);
 }
+
+// The path a launch at head width hd and grid g takes: 1 for wgmma, 0 for
+// mma.sync.
+extern "C" int rel_attention_route(int hd, int g) { return route(hd, g); }

@@ -15,13 +15,19 @@ It takes CUDA tensors only and runs the kernel (``csrc/rel_attention.cu``),
 one launch counted as ``rel_attention`` and its B * heads maps as the
 profiling tallies ``attention_maps`` and ``attention_maps.g{g}`` (by grid:
 a windowed block's launch counts under its window, a global one under the
-token grid).  ``refusal`` names what the kernel does
+token grid).  The kernel takes its ``wgmma`` path at head 64 on grids of 32
+(Cellpose-SAM) and 64 (SAM's global blocks on 1024^2 tiles) and
+``mma.sync`` elsewhere; ``route`` reads that rule from the kernel's library
+(``rel_attention_route``), and the maps of a ``wgmma`` launch are also
+tallied as ``attention_maps.wgmma``.  ``refusal`` names what the kernel does
 not take, and ``rel_attention`` raises on it.  ``rel_attention_plain`` is
 the tests' reference; the block's CPU route is its own (bias, then SDPA).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -31,6 +37,18 @@ from microbeseg_torch.utils.profiling import count
 
 HEAD_WIDTHS = (16, 64)
 MAX_GRID = 64
+ROUTES = ("mma.sync", "wgmma")
+
+
+@functools.lru_cache(maxsize=None)
+def route(hd: int, g: int) -> str:
+    """The kernel's path at head width ``hd`` and grid ``g``: "wgmma" or
+    "mma.sync", as ``csrc/rel_attention.cu`` decides it (builds the
+    library)."""
+    fn = _build.load("rel_attention").rel_attention_route
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    return ROUTES[fn(hd, g)]
 
 
 def refusal(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
@@ -97,14 +115,17 @@ def rel_attention(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
     if why is not None:
         raise ValueError(f"rel_attention: {why}")
     B, n, c = qkv.shape
+    hd = c // (3 * heads)
     out = torch.empty(B, n, c // 3, dtype=qkv.dtype, device=qkv.device)
     fn = _build.entry("rel_attention", "rel_attention_launch", 4, 4)
     with torch.cuda.device(qkv.device):
         err = fn(_build.ptr(qkv), _build.ptr(rel_pos_h),
-                 _build.ptr(rel_pos_w), _build.ptr(out), B, heads,
-                 c // (3 * heads), g, _build.stream_ptr(qkv))
+                 _build.ptr(rel_pos_w), _build.ptr(out), B, heads, hd, g,
+                 _build.stream_ptr(qkv))
     _build.check(err, "rel_attention")
     _build.count_launch("rel_attention")
     count("attention_maps", B * heads)
     count(f"attention_maps.g{g}", B * heads)
+    if route(hd, g) == "wgmma":
+        count("attention_maps.wgmma", B * heads)
     return out

@@ -18,7 +18,8 @@ src/training/train.py:432,448,552-557).  Here the port records, while a
   post-processing's ``flow_points``, the points its Euler steps follow,
   and ``qc_iterations``, the diffusion steps of its flow check;
   ``attention_maps`` and ``attention_maps.g{g}``, the maps of the ViT's
-  attention kernel by grid).
+  attention kernel by grid, and ``attention_maps.wgmma``, those of its
+  launches on the ``wgmma`` path).
 
 With no profiler recording, ``span`` returns one shared no-op context after
 a single flag check and ``count_steps`` and ``count`` return at once:

@@ -786,7 +786,9 @@ def _check_rel_attention(got, want):
     (1, 2, 1, 64, 0.5),      # one token
     (1, 2, 64, 64, 0.2),     # the largest grid
     (50, 16, 14, 64, 0.5),   # muSAM's windowed blocks: 2 tiles x 25 windows
-    (2, 16, 64, 64, 0.5)])   # muSAM's global blocks: 2 tiles of 4,096
+    (2, 16, 64, 64, 0.5),    # muSAM's global blocks: 2 tiles of 4,096
+    (8, 16, 64, 64, 0.5),    # the muSAM cell's forward: 8 tiles of 4,096
+    (2, 16, 64, 64, 2.0)])   # large relative terms: rel_h in the row maximum
 def test_rel_attention_matches_plain(dev, B, heads, g, hd, rel_std):
     from microbeseg_torch.kernels import _build
     from microbeseg_torch.ops.kernels.rel_attention import (
@@ -802,18 +804,20 @@ def test_rel_attention_matches_plain(dev, B, heads, g, hd, rel_std):
 
 
 @pytest.mark.cuda
-def test_rel_attention_is_at_least_as_exact_as_the_bias_and_sdpa(dev):
-    """At the cell's shape, with relative terms of a few units: the kernel
-    keeps rel_h and rel_w in float32, the path it replaces rounds each
-    biased entry to bf16; against the float32 plain path the kernel's RMS
-    error is no larger than that path's."""
+@pytest.mark.parametrize("g", [32, 64])
+def test_rel_attention_is_at_least_as_exact_as_the_bias_and_sdpa(dev, g):
+    """At the cells' grids (16 tiles of 1,024 tokens; 2 of 4,096), with
+    relative terms of a few units: the kernel keeps rel_h and rel_w in
+    float32, the path it replaces rounds each biased entry to bf16; against
+    the float32 plain path the kernel's RMS error is no larger than that
+    path's."""
     import torch.nn.functional as F
 
     from microbeseg_torch.models import vit_sam
     from microbeseg_torch.ops.kernels.rel_attention import (
         rel_attention, rel_attention_plain, split_heads)
 
-    B, heads, g, hd = 16, 16, 32, 64
+    B, heads, hd = (16 if g == 32 else 2), 16, 64
     qkv, (th, tw) = _rel_inputs(dev, B, heads, g, hd, 0.5, 7)
     want = rel_attention_plain(qkv.float(), th, tw, heads, g)
     got = rel_attention(qkv, th, tw, heads, g)
@@ -825,7 +829,7 @@ def test_rel_attention_is_at_least_as_exact_as_the_bias_and_sdpa(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("g,hd", [(32, 64), (8, 16), (12, 64)])
+@pytest.mark.parametrize("g,hd", [(32, 64), (8, 16), (12, 64), (64, 64)])
 def test_rel_attention_zero_tables_give_plain_attention(dev, g, hd):
     """With both tables 0 the kernel is plain softmax attention: against
     PyTorch's math attention in float32."""
@@ -841,6 +845,41 @@ def test_rel_attention_zero_tables_give_plain_attention(dev, g, hd):
     want = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(
         B, g * g, heads * hd)
     _check_rel_attention(got, want)
+
+
+@pytest.mark.cuda
+def test_rel_attention_route_and_its_count(dev):
+    """The kernel's own rule: ``wgmma`` at head 64 on grids of 32 and 64,
+    ``mma.sync`` elsewhere.  The g = 32 instance keeps its 102,400 bytes
+    of shared memory a block, and g = 64 fits twice in an H100's SM (228 KB,
+    1 KB of it reserved a block).  ``attention_maps.wgmma`` counts a g = 64
+    launch's B * heads maps and nothing of a g = 14 launch."""
+    import ctypes
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from microbeseg_torch.kernels import _build
+    from microbeseg_torch.ops.kernels.rel_attention import (rel_attention,
+                                                            route)
+    from microbeseg_torch.utils import profiling
+
+    assert [route(64, 32), route(64, 64)] == ["wgmma", "wgmma"]
+    assert [route(64, 14), route(64, 12), route(16, 64)] == ["mma.sync"] * 3
+    lib = _build.load("rel_attention")
+    lib.rel_attention_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    assert lib.rel_attention_shared_bytes(64, 32) == 102400
+    assert 2 * (lib.rel_attention_shared_bytes(64, 64) + 1024) <= 228 * 1024
+    heads = 4
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for B, g in ((3, 64), (5, 14)):
+            qkv, (th, tw) = _rel_inputs(dev, B, heads, g, 64, 0.5, g)
+            rel_attention(qkv, th, tw, heads, g)
+    counters = profiling.summary()["counters"]
+    profiling.reset()
+    assert counters["attention_maps.wgmma"] == 3 * heads
+    assert counters["attention_maps.g64"] == 3 * heads
+    assert counters["attention_maps.g14"] == 5 * heads
 
 
 @pytest.mark.cuda
